@@ -1,0 +1,11 @@
+"""``repro_torch``: the rank-1 SVD update system in PyTorch, with hand-written
+CUDA kernels for an H100 (``sm_90a``).
+
+It mirrors the JAX package ``repro`` (the reference) module by module and
+imports none of it.  ``api.update`` / ``api.update_many`` run where the state
+lives; the state constructors default to ``device="cuda"``.
+"""
+
+from repro_torch import api, convert  # noqa: F401
+
+__all__ = ["api", "convert"]

@@ -1,0 +1,99 @@
+"""``UpdatePolicy``: every knob of a rank-1 SVD update in one frozen object.
+
+Counterpart of ``repro.api.policy``.  ``resolve_method`` keeps the
+reference's routing rule (the fused gate of ``kernels.fused_update`` with its
+8 MiB budget, then the FMM floor), so that ``method="auto"`` picks the same
+route in both packages for the same geometry.  The gate is kept for route
+parity with the reference; it is not derived from this card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+__all__ = ["UpdatePolicy", "METHODS", "FMM_MIN_N", "as_torch_dtype"]
+
+# "pallas" is the public name of the Cauchy-kernel route (engine name
+# "kernel"); "fast" is the reference's host-side benchmark baseline.
+METHODS = ("auto", "direct", "fmm", "fast", "pallas", "kernel", "fused")
+
+# the reference's FMM floor (repro.core.eigh_update._FMM_MIN_N)
+FMM_MIN_N = 96
+
+_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+           "float32": torch.float32, "float64": torch.float64}
+
+
+def as_torch_dtype(dt) -> torch.dtype:
+    """A torch dtype from a torch dtype, a name, or a numpy dtype."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    name = getattr(dt, "name", None) or str(dt)
+    name = name.rsplit(".", 1)[-1]
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {dt!r}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdatePolicy:
+    """How a rank-1 update runs.
+
+    method         auto | direct | pallas | fused (| kernel alias); fmm and
+                   fast are refused by the engine
+    sign_fix       reconcile left/right singular-vector signs
+    deflate_rtol   deflation tolerance override (None = default)
+    precision      float32 matmul precision (None = "highest": no TF32)
+    storage_dtype  keep factors in this dtype; 16-bit storage computes in f32
+    mesh           not ported (ROADMAP A7); must be None
+    truncate_to    keep only the top-r triplets of every result
+    """
+
+    method: str = "auto"
+    sign_fix: bool = True
+    deflate_rtol: float | None = None
+    precision: str | None = None
+    storage_dtype: Any = None
+    mesh: Any = None
+    truncate_to: int | None = None
+
+    def __post_init__(self):
+        if self.method not in METHODS:
+            raise ValueError(f"unknown method {self.method!r}; one of {METHODS}")
+        if self.truncate_to is not None and self.truncate_to < 1:
+            raise ValueError(f"truncate_to must be >= 1; got {self.truncate_to}")
+        if self.storage_dtype is not None:
+            object.__setattr__(self, "storage_dtype", as_torch_dtype(self.storage_dtype))
+
+    def replace(self, **kw) -> "UpdatePolicy":
+        return dataclasses.replace(self, **kw)
+
+    def resolve_method(self, problem_n: int, *, m: int | None = None, n: int | None = None,
+                       rank: int | None = None) -> str:
+        """Concrete engine method for a problem of secular size ``problem_n``
+        (``n`` for full updates, ``rank + 1`` for truncated ones)."""
+        if self.method == "fast":
+            raise NotImplementedError(
+                "method='fast' (Gerasoulis FAST) is the reference's host-side benchmark "
+                "baseline, not an engine route")
+        if self.method == "pallas":
+            return "kernel"
+        if self.method == "auto":
+            if m is not None:
+                from repro_torch.kernels.fused_update import fused_supported
+
+                dt = self.storage_dtype if self.storage_dtype is not None else torch.float32
+                if fused_supported(m, n if n is not None else problem_n, rank, dtype=dt):
+                    return "fused"
+            return "fmm" if problem_n >= FMM_MIN_N else "direct"
+        return self.method
+
+    def engine_key(self, problem_n: int, *, m: int | None = None, n: int | None = None,
+                   rank: int | None = None) -> tuple:
+        """``(method, sign_fix, deflate_rtol, precision, storage_dtype)``: the
+        key of ``core.engine.default_engine``."""
+        return (self.resolve_method(problem_n, m=m, n=n, rank=rank), self.sign_fix,
+                self.deflate_rtol, self.precision, self.storage_dtype)

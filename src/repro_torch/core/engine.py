@@ -1,0 +1,206 @@
+"""Batch-first SVD-update engine, plain PyTorch.
+
+Counterpart of ``repro.core.engine``.  PyTorch runs eagerly, so there is no
+executable to cache: the engine keeps the reference's geometry-keyed cache
+accounting (``cache_info``: hits, misses, entries as plain integers) and runs
+Algorithm 6.1 over a leading batch dimension.  Single updates add and remove
+that dimension.  Mesh dispatch is not ported (ROADMAP A7).
+
+Float32 matrix products run in full float32: each call sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` and
+``torch.set_float32_matmul_precision("highest")`` (or the policy's precision)
+and restores the previous settings afterwards.  This is the counterpart of
+the reference's ``SvdEngine._with_precision``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.svd_update import (
+    SvdUpdateResult,
+    TruncatedSvd,
+    _svd_update_impl,
+    _svd_update_truncated_impl,
+)
+
+__all__ = [
+    "EngineCacheInfo",
+    "SvdEngine",
+    "default_engine",
+    "group_indices",
+    "stack_trees",
+    "unstack_tree",
+]
+
+# torch's float32 matmul precisions; None is "highest" (no TF32)
+_PRECISION = {None: "highest", "highest": "highest", "high": "high", "medium": "medium"}
+
+
+def group_indices(keys) -> dict:
+    """``{key: [indices with that key]}`` in first-seen order."""
+    groups: dict = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k, []).append(i)
+    return groups
+
+
+def _stack(xs):
+    return None if any(x is None for x in xs) else torch.stack(xs)
+
+
+def stack_trees(trees):
+    """Stack identically shaped states (dataclasses or tuples of tensors) on a
+    new leading batch dimension; a field that is ``None`` anywhere stays ``None``."""
+    first = trees[0]
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{f.name: _stack([getattr(t, f.name) for t in trees])
+                              for f in dataclasses.fields(first)})
+    return type(first)(*(_stack(xs) for xs in zip(*trees)))
+
+
+def unstack_tree(tree, i: int):
+    """Batch element ``i`` of a stacked state (dataclass or tuple of tensors)."""
+    pick = lambda x: None if x is None else x[i]  # noqa: E731
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: pick(getattr(tree, f.name))
+                             for f in dataclasses.fields(tree)})
+    return type(tree)(*(pick(x) for x in tree))
+
+
+class EngineCacheInfo(NamedTuple):
+    hits: int
+    misses: int
+    entries: int
+
+
+def _geometry(kind: str, *tensors) -> tuple:
+    return (kind,) + tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded updates are not ported yet (ROADMAP A7)")
+
+
+class SvdEngine:
+    """Rank-1 SVD update engine for one (method, sign_fix, deflate_rtol,
+    precision, storage_dtype) configuration."""
+
+    def __init__(self, *, method: str = "direct", sign_fix: bool = True,
+                 deflate_rtol: float | None = None, precision: str | None = None,
+                 storage_dtype: torch.dtype | None = None):
+        if method == "fmm":
+            raise NotImplementedError(
+                "method 'fmm' (the Chebyshev FMM route) is not ported yet (ROADMAP A3)")
+        if method not in ("direct", "kernel", "fused"):
+            raise ValueError(f"unknown method {method!r}")
+        if precision not in _PRECISION:
+            raise ValueError(f"unknown precision {precision!r}; one of {tuple(_PRECISION)}")
+        self.method = method
+        self.sign_fix = sign_fix
+        self.deflate_rtol = deflate_rtol
+        self.precision = precision
+        self.storage_dtype = storage_dtype
+        self.compute_dtype = (torch.float32 if storage_dtype is not None
+                              and storage_dtype.itemsize <= 2 else None)
+        self._geometries: set = set()
+        self._hits = 0
+        self._misses = 0
+        self._lock = threading.Lock()
+
+    def cache_info(self) -> EngineCacheInfo:
+        return EngineCacheInfo(self._hits, self._misses, len(self._geometries))
+
+    def cache_clear(self) -> None:
+        with self._lock:
+            self._geometries.clear()
+            self._hits = 0
+            self._misses = 0
+
+    def _count(self, key: tuple) -> None:
+        with self._lock:
+            if key in self._geometries:
+                self._hits += 1
+            else:
+                self._misses += 1
+                self._geometries.add(key)
+
+    @contextlib.contextmanager
+    def _precision(self):
+        prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+        prev_prec = torch.get_float32_matmul_precision()
+        prec = _PRECISION[self.precision]
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cuda.matmul.allow_tf32 = prec != "highest"
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prev_prec)
+            torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+    def _full(self, u, s, v, a, b) -> SvdUpdateResult:
+        with self._precision():
+            return _svd_update_impl(u, s, v, a, b, method=self.method, sign_fix=self.sign_fix,
+                                    deflate_rtol=self.deflate_rtol,
+                                    compute_dtype=self.compute_dtype)
+
+    def _trunc(self, t: TruncatedSvd, a, b) -> TruncatedSvd:
+        with self._precision():
+            return _svd_update_truncated_impl(t, a, b, method=self.method,
+                                              deflate_rtol=self.deflate_rtol,
+                                              compute_dtype=self.compute_dtype)
+
+    def update(self, u, s, v, a, b) -> SvdUpdateResult:
+        """One Algorithm-6.1 update: ``u`` (m, m), ``s`` (m,), ``v`` (n, n)."""
+        self._count(_geometry("single", u, s, v, a, b))
+        out = self._full(u[None], s[None], v[None], a[None], b[None])
+        return SvdUpdateResult(*(x[0] for x in out))
+
+    def update_batch(self, u, s, v, a, b, *, mesh=None) -> SvdUpdateResult:
+        """B stacked updates: ``u`` (B, m, m), ``s`` (B, m), ``v`` (B, n, n),
+        ``a`` (B, m), ``b`` (B, n)."""
+        _no_mesh(mesh)
+        if u.dim() != 3:
+            raise ValueError(f"update_batch expects stacked (B, m, m) u; got {tuple(u.shape)}")
+        self._count(_geometry("batch", u, s, v, a, b))
+        return self._full(u, s, v, a, b)
+
+    def update_truncated(self, tsvd, a, b) -> TruncatedSvd:
+        """One Brand-truncated update: ``u`` (m, r), ``s`` (r,), ``v`` (n, r)."""
+        self._count(_geometry("trunc", tsvd.u, tsvd.s, tsvd.v, a, b))
+        out = self._trunc(TruncatedSvd(tsvd.u[None], tsvd.s[None], tsvd.v[None]),
+                          a[None], b[None])
+        return TruncatedSvd(*(x[0] for x in out))
+
+    def update_truncated_batch(self, tsvd, a, b, *, mesh=None) -> TruncatedSvd:
+        """B stacked truncated updates: ``u`` (B, m, r), ``s`` (B, r), ``v`` (B, n, r)."""
+        _no_mesh(mesh)
+        if tsvd.u.dim() != 3:
+            raise ValueError(f"update_truncated_batch expects stacked (B, m, r) u; "
+                             f"got {tuple(tsvd.u.shape)}")
+        self._count(_geometry("trunc_batch", tsvd.u, tsvd.s, tsvd.v, a, b))
+        return self._trunc(TruncatedSvd(tsvd.u, tsvd.s, tsvd.v), a, b)
+
+
+_default_engines: dict[tuple, SvdEngine] = {}
+_default_lock = threading.Lock()
+
+
+def default_engine(method: str = "direct", *, sign_fix: bool = True,
+                   deflate_rtol: float | None = None, precision: str | None = None,
+                   storage_dtype: torch.dtype | None = None) -> SvdEngine:
+    """The process-wide engine for a configuration (shared cache accounting)."""
+    key = (method, sign_fix, deflate_rtol, precision, storage_dtype)
+    with _default_lock:
+        eng = _default_engines.get(key)
+        if eng is None:
+            eng = SvdEngine(method=method, sign_fix=sign_fix, deflate_rtol=deflate_rtol,
+                            precision=precision, storage_dtype=storage_dtype)
+            _default_engines[key] = eng
+        return eng

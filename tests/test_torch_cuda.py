@@ -1,0 +1,136 @@
+"""Card-only tests of the port: each CUDA kernel against its plain PyTorch
+version, and ``api`` on the card going through the kernels.
+
+They skip without a card.  The file imports neither jax nor the reference,
+so it also runs on a machine that has neither:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import cuda_device, np_, spectrum_problem, svd_problem, t  # noqa: F401
+from repro_torch import api, convert
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_update as F
+from repro_torch.kernels.cauchy_matmul import cauchy_matmul_cuda, cauchy_matmul_plain
+
+pytestmark = pytest.mark.cuda
+
+# f64 agrees to rounding.  f32: the Cauchy product sums N terms up to
+# |w| / min|den|.  The fused updates are compared by the scale-free measures
+# of chip_smoke.py (see _err) on well-separated spectra, with its limits.
+CAUCHY_TOL = {torch.float64: 1e-12, torch.float32: 2e-4}
+FUSED_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-3, 1e-4)}
+
+
+def _cauchy_inputs(rng, bsz, r, n, m):
+    src = np.sort(rng.normal(size=(bsz, n)), axis=1)
+    av = np.take_along_axis(src, rng.integers(0, n, size=(bsz, m)), axis=1)
+    tau = rng.normal(size=(bsz, m)) * 1e-2
+    tau[:, 0] = 0.0
+    return rng.normal(size=(bsz, r, n)), src, av, tau, rng.random((bsz, m)) > 0.2
+
+
+def _recon(u, s, v):
+    k = s.shape[-1]
+    return (u[..., :k].double() * s[..., None, :].double()) @ v[..., :, :k].double().mT
+
+
+def _err(got, want):
+    """(||U S V^T - U' S' V'^T||_F / ||U' S' V'^T||_F, max_i |s_i - s'_i| / s'_i),
+    each the largest over the batch."""
+    rw = _recon(*want[:3])
+    recon = (_recon(*got[:3]) - rw).flatten(-2).norm(dim=-1) / rw.flatten(-2).norm(dim=-1)
+    sw = want[1].double()
+    sigma = (got[1].double() - sw).abs() / sw.abs()
+    return float(recon.max()), float(sigma.max())
+
+
+def _within(err, tol):
+    return err[0] < tol[0] and err[1] < tol[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(2, 5, 37, 29), (4, 192, 192, 192)])
+def test_cauchy_kernel_matches_plain(cuda_device, dtype, shape):
+    rng = np.random.default_rng(6)
+    args = [t(x, dtype, cuda_device) for x in _cauchy_inputs(rng, *shape)]
+    before = _build.LAUNCHES["cauchy_matmul"]
+    got = cauchy_matmul_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["cauchy_matmul"] == before + 1
+    want = cauchy_matmul_plain(*args)
+    assert float((got - want).abs().max() / want.abs().max()) < CAUCHY_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(16, 16), (32, 48), (20, 21)])
+def test_fused_kernel_matches_plain(cuda_device, dtype, m, n):
+    rng = np.random.default_rng(31)
+    probs = [spectrum_problem(rng, m, n) for _ in range(4)]
+    args = [t(np.stack(x), dtype, cuda_device) for x in zip(*probs)]
+    before = _build.LAUNCHES["fused_update"]
+    got = F.fused_update_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_update"] == before + 1
+    want = F._fused_body(*args)
+    assert _within(_err(got, want), FUSED_TOL[dtype])
+    flipped = got[0].clone()  # a planted fault must fail the check
+    j = int(got[1][0].abs().argmin())
+    flipped[0, :, j] = -flipped[0, :, j]
+    assert not _within(_err((flipped,) + got[1:], want), FUSED_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_truncated_kernel_matches_plain(cuda_device, dtype):
+    rng = np.random.default_rng(32)
+    probs = [spectrum_problem(rng, 64, 96, 8) for _ in range(4)]
+    args = [t(np.stack(x), dtype, cuda_device) for x in zip(*probs)]
+    before = _build.LAUNCHES["fused_update_truncated"]
+    got = F.fused_update_truncated_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_update_truncated"] == before + 1
+    assert _within(_err(got, F._fused_truncated_body(*args)), FUSED_TOL[dtype])
+
+
+def test_bf16_kernel_within_budget(cuda_device):
+    rng = np.random.default_rng(33)
+    m, n = 32, 48
+    probs = [svd_problem(rng, m, n) for _ in range(8)]
+    u, s, v, a, b = (np.stack(x) for x in zip(*probs))
+    got = F.fused_update_cuda(*(t(x, torch.bfloat16, cuda_device) for x in (u, s, v, a, b)))
+    dense = np.einsum("bik,bk,bjk->bij", u, s, v[..., :m]) + a[:, :, None] * b[:, None, :]
+    s_ref = np.linalg.svd(dense, compute_uv=False)
+    sigma_rel = np.max(np.abs(np_(got[1]) - s_ref).max(1) / s_ref[:, 0])
+    assert sigma_rel < F.BF16_ERROR_BUDGET["sigma_rel"]
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    rng = np.random.default_rng(34)
+    args = [t(np.stack(x), torch.float64, cuda_device) for x in zip(svd_problem(rng, 4, 6))]
+    with pytest.raises(ValueError, match="contiguous"):
+        F.fused_update_cuda(args[0].mT, *args[1:])
+    with pytest.raises(NotImplementedError):
+        F.fused_update_cuda(*args, compute_dtype=torch.float32)
+
+
+def test_api_on_card_goes_through_kernels(cuda_device):
+    rng = np.random.default_rng(48)
+    probs = [svd_problem(rng, 16, 24) for _ in range(2)]
+    states = [convert.state_from_arrays(*p[:3], device=cuda_device) for p in probs]
+    cpu_states = [convert.state_from_arrays(*p[:3], device="cpu") for p in probs]
+    A = [p[3] for p in probs]
+    B = [p[4] for p in probs]
+    for method, counter in (("auto", "fused_update"), ("pallas", "cauchy_matmul")):
+        before = _build.LAUNCHES[counter]
+        got = api.update_many(states, A, B, api.UpdatePolicy(method=method))
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[counter] > before
+        want = api.update_many(cpu_states, A, B, api.UpdatePolicy(method=method))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(np_(g.s), np_(w.s), atol=1e-10, rtol=0)
+            np.testing.assert_allclose(np_(_recon(g.u, g.s, g.v)), np_(_recon(w.u, w.s, w.v)),
+                                       atol=1e-10, rtol=0)
