@@ -2,10 +2,11 @@
 CUDA kernels for an H100 (``sm_90a``).
 
 It mirrors the JAX package ``repro`` (the reference) module by module and
-imports none of it.  ``api.update`` / ``api.update_many`` run where the state
-lives; the state constructors default to ``device="cuda"``.
+imports none of it.  ``api.update`` / ``api.update_many`` (rank-1 events) and
+``api.apply`` / ``api.apply_many`` (structured updates, ``updates``) run where
+the state lives; the state constructors default to ``device="cuda"``.
 """
 
-from repro_torch import api, convert  # noqa: F401
+from repro_torch import api, convert, updates  # noqa: F401
 
-__all__ = ["api", "convert"]
+__all__ = ["api", "convert", "updates"]

@@ -5,12 +5,15 @@
     state  = api.SvdState.from_dense(a_mat)           # on the card by default
     state  = api.update(state, a, b)                  # SVD of A + a b^T
     states = api.update_many(states, A_vecs, B_vecs)  # grouped and batched
+    state  = api.apply(state, op)                     # structured update (repro_torch.updates)
+    states = api.apply_many(states, ops)              # same-plan groups batched
 """
 
 from repro_torch.api.policy import METHODS, UpdatePolicy
 from repro_torch.api.state import SvdState, as_state
 from repro_torch.api.update import (
     apply,
+    apply_many,
     engine_for,
     update,
     update_many,
@@ -23,6 +26,7 @@ __all__ = [
     "SvdState",
     "UpdatePolicy",
     "apply",
+    "apply_many",
     "as_state",
     "engine_for",
     "update",

@@ -48,8 +48,13 @@ class UpdatePolicy:
     deflate_rtol   deflation tolerance override (None = default)
     precision      float32 matmul precision (None = "highest": no TF32)
     storage_dtype  keep factors in this dtype; 16-bit storage computes in f32
+    sketch_oversample   extra range-finder samples beyond a sketch's rank
+    sketch_power_iters  power iterations of the dense range-finder
     mesh           not ported (ROADMAP A7); must be None
     truncate_to    keep only the top-r triplets of every result
+
+    The sketch knobs key the planner's schedule cache (``sketch_params``), not
+    the engine: the rank-1 update itself does not depend on them.
     """
 
     method: str = "auto"
@@ -57,6 +62,8 @@ class UpdatePolicy:
     deflate_rtol: float | None = None
     precision: str | None = None
     storage_dtype: Any = None
+    sketch_oversample: int = 8
+    sketch_power_iters: int = 1
     mesh: Any = None
     truncate_to: int | None = None
 
@@ -65,6 +72,10 @@ class UpdatePolicy:
             raise ValueError(f"unknown method {self.method!r}; one of {METHODS}")
         if self.truncate_to is not None and self.truncate_to < 1:
             raise ValueError(f"truncate_to must be >= 1; got {self.truncate_to}")
+        if self.sketch_oversample < 0:
+            raise ValueError(f"sketch_oversample must be >= 0; got {self.sketch_oversample}")
+        if self.sketch_power_iters < 0:
+            raise ValueError(f"sketch_power_iters must be >= 0; got {self.sketch_power_iters}")
         if self.storage_dtype is not None:
             object.__setattr__(self, "storage_dtype", as_torch_dtype(self.storage_dtype))
 
@@ -93,7 +104,16 @@ class UpdatePolicy:
 
     def engine_key(self, problem_n: int, *, m: int | None = None, n: int | None = None,
                    rank: int | None = None) -> tuple:
-        """``(method, sign_fix, deflate_rtol, precision, storage_dtype)``: the
-        key of ``core.engine.default_engine``."""
+        """``(method, sign_fix, deflate_rtol, precision, storage_dtype,
+        sketch_oversample, sketch_power_iters)``: the first five key
+        ``core.engine.default_engine``, the sketch fields the planner's
+        schedule cache."""
         return (self.resolve_method(problem_n, m=m, n=n, rank=rank), self.sign_fix,
-                self.deflate_rtol, self.precision, self.storage_dtype)
+                self.deflate_rtol, self.precision, self.storage_dtype,
+                self.sketch_oversample, self.sketch_power_iters)
+
+    @property
+    def sketch_params(self) -> tuple[int, int]:
+        """``(oversample, power_iters)``: the schedule-cache fold of the
+        range-finder knobs (``updates.planner.lower``)."""
+        return (self.sketch_oversample, self.sketch_power_iters)

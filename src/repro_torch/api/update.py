@@ -10,9 +10,12 @@ geometry and the policy:
     no              no                 engine.update_truncated (Brand)
     no              yes                engine.update_truncated_batch
 
-The update runs on the state's device.  Not ported, and refused by name:
-mesh placement (ROADMAP A7), ``update_rank_k`` and ``apply`` (ROADMAP A4),
-``warmup`` (ROADMAP A2, remainder).
+``update_rank_k`` applies k rank-1 pairs in order through the engine's
+rank-k entry points; ``apply`` / ``apply_many`` (structured updates) live in
+``updates.planner`` and are reached from here lazily, since the planner
+builds on this module.  The update runs on the state's device.  Not ported,
+and refused by name: mesh placement (ROADMAP A7), ``warmup`` (ROADMAP A2,
+remainder).
 """
 
 from __future__ import annotations
@@ -33,16 +36,17 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.svd_update import TruncatedSvd
 
-__all__ = ["engine_for", "engine_from_key", "update", "update_many", "update_rank_k",
-           "apply", "warmup"]
+__all__ = ["apply", "apply_many", "engine_for", "engine_from_key", "update", "update_many",
+           "update_rank_k", "warmup"]
 
 _DEFAULT_POLICY = UpdatePolicy()
 
 
 def engine_from_key(policy: UpdatePolicy, problem_n: int, *, m: int | None = None,
                     n: int | None = None, rank: int | None = None) -> SvdEngine:
-    """The one place a policy's ``engine_key`` unpacks into ``default_engine``."""
-    method, sign_fix, deflate_rtol, precision, storage_dtype = policy.engine_key(
+    """The one place a policy's ``engine_key`` unpacks into ``default_engine``
+    (the trailing sketch fields key the planner's schedule cache, not the engine)."""
+    method, sign_fix, deflate_rtol, precision, storage_dtype, _, _ = policy.engine_key(
         problem_n, m=m, n=n, rank=rank)
     return default_engine(method, sign_fix=sign_fix, deflate_rtol=deflate_rtol,
                           precision=precision, storage_dtype=storage_dtype)
@@ -61,17 +65,30 @@ def _vec(x, st: SvdState) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=st.device, dtype=st.dtype)
 
 
-def update(state, a, b, policy: UpdatePolicy | None = None) -> SvdState:
-    """SVD of ``state + a b^T`` under ``policy``: full or truncated, single or
-    stacked, decided by geometry.  ``a``: (..., m), ``b``: (..., n), with the
-    leading batch axis iff the state is stacked.  Full states keep the eigen
-    diagnostics."""
+def _prepare(state, policy: UpdatePolicy | None):
+    """The policy (default filled in) and the state, cast to the policy's
+    storage dtype; mesh placement is refused."""
     policy = policy if policy is not None else _DEFAULT_POLICY
     if policy.mesh is not None:
         raise NotImplementedError("mesh-sharded updates are not ported yet (ROADMAP A7)")
     st = as_state(state)
     if policy.storage_dtype is not None and st.dtype != policy.storage_dtype:
         st = st.to(policy.storage_dtype)
+    return policy, st
+
+
+def _finish(out: SvdState, policy: UpdatePolicy) -> SvdState:
+    if policy.truncate_to is not None and policy.truncate_to < out.rank:
+        out = out.truncate(policy.truncate_to)
+    return out
+
+
+def update(state, a, b, policy: UpdatePolicy | None = None) -> SvdState:
+    """SVD of ``state + a b^T`` under ``policy``: full or truncated, single or
+    stacked, decided by geometry.  ``a``: (..., m), ``b``: (..., n), with the
+    leading batch axis iff the state is stacked.  Full states keep the eigen
+    diagnostics."""
+    policy, st = _prepare(state, policy)
     a, b = _vec(a, st), _vec(b, st)
     eng = engine_for(policy, st)
     if st.is_full:
@@ -87,9 +104,7 @@ def update(state, a, b, policy: UpdatePolicy | None = None) -> SvdState:
         else:
             t2 = eng.update_truncated(t, a, b)
         out = SvdState(u=t2.u, s=t2.s, v=t2.v)
-    if policy.truncate_to is not None and policy.truncate_to < out.rank:
-        out = out.truncate(policy.truncate_to)
-    return out
+    return _finish(out, policy)
 
 
 def update_many(states: Sequence, A, B, policy: UpdatePolicy | None = None) -> tuple:
@@ -120,12 +135,52 @@ def update_many(states: Sequence, A, B, policy: UpdatePolicy | None = None) -> t
     return tuple(out)
 
 
-def update_rank_k(state, A, B, policy: UpdatePolicy | None = None):
-    raise NotImplementedError("update_rank_k is not ported yet (ROADMAP A4)")
+def update_rank_k(state, A, B, policy: UpdatePolicy | None = None) -> SvdState:
+    """SVD of ``state + A^T B`` as k rank-1 updates in row order.
+
+    ``A``: (k, m) rows of left vectors, ``B``: (k, n) rows of right vectors,
+    with a leading batch axis before k iff the state is stacked.  With
+    ``truncate_to`` below the state's rank the pairs run one ``update`` at a
+    time, so that the rule applies after each of them."""
+    policy = policy if policy is not None else _DEFAULT_POLICY
+    if policy.truncate_to is not None and policy.truncate_to < as_state(state).rank:
+        out = as_state(state)
+        for i in range(A.shape[-2]):
+            out = update(out, A[..., i, :], B[..., i, :], policy)
+        return out
+    policy, st = _prepare(state, policy)
+    A, B = _vec(A, st), _vec(B, st)
+    eng = engine_for(policy, st)
+    if st.is_full:
+        if st.is_batched:
+            res = eng.update_rank_k_batch(st.u, st.s, st.v, A, B)
+        else:
+            res = eng.update_rank_k(st.u, st.s, st.v, A, B)
+        out = SvdState(u=res.u, s=res.s, v=res.v, d_left=res.d_left, d_right=res.d_right)
+    else:
+        t = TruncatedSvd(u=st.u, s=st.s, v=st.v)
+        if st.is_batched:
+            t2 = eng.update_truncated_rank_k_batch(t, A, B)
+        else:
+            t2 = eng.update_truncated_rank_k(t, A, B)
+        out = SvdState(u=t2.u, s=t2.s, v=t2.v)
+    return _finish(out, policy)
 
 
-def apply(state, op, policy: UpdatePolicy | None = None):
-    raise NotImplementedError("structured updates (api.apply) are not ported yet (ROADMAP A4)")
+def apply(state, op, policy: UpdatePolicy | None = None) -> SvdState:
+    """SVD of ``op.apply_dense(state.materialize())`` by a planned schedule of
+    rank-1 updates (``updates.planner.apply``)."""
+    from repro_torch.updates import planner
+
+    return planner.apply(state, op, policy)
+
+
+def apply_many(states: Sequence, ops: Sequence, policy: UpdatePolicy | None = None) -> tuple:
+    """``ops[i]`` applied to ``states[i]``, same-plan groups batched
+    (``updates.planner.apply_many``)."""
+    from repro_torch.updates import planner
+
+    return planner.apply_many(states, ops, policy)
 
 
 def warmup(policy: UpdatePolicy, **kwargs):

@@ -4,7 +4,9 @@ Counterpart of ``repro.core.engine``.  PyTorch runs eagerly, so there is no
 executable to cache: the engine keeps the reference's geometry-keyed cache
 accounting (``cache_info``: hits, misses, entries as plain integers) and runs
 Algorithm 6.1 over a leading batch dimension.  Single updates add and remove
-that dimension.  Mesh dispatch is not ported (ROADMAP A7).
+that dimension.  The rank-k entry points (the reference's ``lax.scan`` of k
+rank-1 updates) are a Python loop of k calls to the same rank-1 body.  Mesh
+dispatch is not ported (ROADMAP A7).
 
 Float32 matrix products run in full float32: each call sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -156,6 +158,19 @@ class SvdEngine:
                                               deflate_rtol=self.deflate_rtol,
                                               compute_dtype=self.compute_dtype)
 
+    def _full_k(self, u, s, v, va, vb) -> SvdUpdateResult:
+        """k sequential full updates over a leading batch dimension: ``va``
+        (B, k, m), ``vb`` (B, k, n); diagnostics are the last step's."""
+        res = SvdUpdateResult(u, s, v, None, None)
+        for i in range(va.shape[1]):
+            res = self._full(res.u, res.s, res.v, va[:, i], vb[:, i])
+        return res
+
+    def _trunc_k(self, t: TruncatedSvd, va, vb) -> TruncatedSvd:
+        for i in range(va.shape[1]):
+            t = self._trunc(t, va[:, i], vb[:, i])
+        return t
+
     def update(self, u, s, v, a, b) -> SvdUpdateResult:
         """One Algorithm-6.1 update: ``u`` (m, m), ``s`` (m,), ``v`` (n, n)."""
         self._count(_geometry("single", u, s, v, a, b))
@@ -187,6 +202,40 @@ class SvdEngine:
         self._count(_geometry("trunc_batch", tsvd.u, tsvd.s, tsvd.v, a, b))
         return self._trunc(TruncatedSvd(tsvd.u, tsvd.s, tsvd.v), a, b)
 
+    # -- rank-k entry points: k rank-1 pairs applied in row order ------------
+
+    def update_rank_k(self, u, s, v, va, vb) -> SvdUpdateResult:
+        """k sequential full updates: ``va`` (k, m), ``vb`` (k, n);
+        ``d_left``/``d_right`` are the last step's."""
+        self._count(_geometry("rank_k", u, s, v, va, vb))
+        out = self._full_k(u[None], s[None], v[None], va[None], vb[None])
+        return SvdUpdateResult(*(None if x is None else x[0] for x in out))
+
+    def update_rank_k_batch(self, u, s, v, va, vb, *, mesh=None) -> SvdUpdateResult:
+        """B stacked k-step updates: ``u`` (B, m, m), ``va`` (B, k, m), ..."""
+        _no_mesh(mesh)
+        if u.dim() != 3:
+            raise ValueError(f"update_rank_k_batch expects stacked (B, m, m) u; "
+                             f"got {tuple(u.shape)}")
+        self._count(_geometry("rank_k_batch", u, s, v, va, vb))
+        return self._full_k(u, s, v, va, vb)
+
+    def update_truncated_rank_k(self, tsvd, va, vb) -> TruncatedSvd:
+        """k sequential truncated updates: ``va`` (k, m), ``vb`` (k, n)."""
+        self._count(_geometry("trunc_rank_k", tsvd.u, tsvd.s, tsvd.v, va, vb))
+        out = self._trunc_k(TruncatedSvd(tsvd.u[None], tsvd.s[None], tsvd.v[None]),
+                            va[None], vb[None])
+        return TruncatedSvd(*(x[0] for x in out))
+
+    def update_truncated_rank_k_batch(self, tsvd, va, vb, *, mesh=None) -> TruncatedSvd:
+        """B stacked k-step truncated updates: ``va`` (B, k, m), ``vb`` (B, k, n)."""
+        _no_mesh(mesh)
+        if tsvd.u.dim() != 3:
+            raise ValueError(f"update_truncated_rank_k_batch expects stacked (B, m, r) u; "
+                             f"got {tuple(tsvd.u.shape)}")
+        self._count(_geometry("trunc_rank_k_batch", tsvd.u, tsvd.s, tsvd.v, va, vb))
+        return self._trunc_k(TruncatedSvd(tsvd.u, tsvd.s, tsvd.v), va, vb)
+
 
 _default_engines: dict[tuple, SvdEngine] = {}
 _default_lock = threading.Lock()
@@ -204,3 +253,4 @@ def default_engine(method: str = "direct", *, sign_fix: bool = True,
                             precision=precision, storage_dtype=storage_dtype)
             _default_engines[key] = eng
         return eng
+

@@ -15,8 +15,9 @@ from repro_torch.kernels.fused_update import (
     fused_update_batched,
     fused_update_truncated_batched,
 )
+from repro_torch.kernels.sparse_proj import sparse_project
 
-__all__ = ["cauchy_matmul_stable", "fused_update", "fused_update_truncated"]
+__all__ = ["cauchy_matmul_stable", "fused_update", "fused_update_truncated", "sparse_project"]
 
 
 def cauchy_matmul_stable(w, src, anchor, tau, *, src_valid=None, tgt_valid=None):

@@ -19,7 +19,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_helpers import ref, svd_problem, truncated_problem
-from repro_torch import api, convert
+from repro_torch import api, convert, updates
 
 RAPI = ref("api")
 REPO = Path(__file__).resolve().parent.parent
@@ -182,9 +182,7 @@ def test_unported_routes_raise_by_name():
         api.update(st, a, b, api.UpdatePolicy(mesh=object()))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         api.SvdState.from_factors(u, s, v, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        api.update_rank_k(st, a[None], b[None])
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        api.apply(st, None)
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         api.warmup(api.UpdatePolicy(), m=4, n=6)
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        updates.warmup_plan(api.UpdatePolicy(), updates.Decay(0.5), m=4, n=6)

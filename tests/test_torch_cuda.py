@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from _torch_helpers import cuda_device, np_, spectrum_problem, svd_problem, t  # noqa: F401
-from repro_torch import api, convert
+from repro_torch import api, convert, updates
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_update as F
+from repro_torch.kernels import sparse_proj as SP
 from repro_torch.kernels.cauchy_matmul import cauchy_matmul_cuda, cauchy_matmul_plain
 
 pytestmark = pytest.mark.cuda
@@ -23,6 +24,9 @@ pytestmark = pytest.mark.cuda
 # |w| / min|den|.  The fused updates are compared by the scale-free measures
 # of chip_smoke.py (see _err) on well-separated spectra, with its limits.
 CAUCHY_TOL = {torch.float64: 1e-12, torch.float32: 2e-4}
+# the sparse projection sums each row's terms in the plain version's order; only
+# the fused multiply-add rounds differently (relative to max |out|)
+SPARSE_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 FUSED_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-3, 1e-4)}
 
 
@@ -134,3 +138,80 @@ def test_api_on_card_goes_through_kernels(cuda_device):
             np.testing.assert_allclose(np_(g.s), np_(w.s), atol=1e-10, rtol=0)
             np.testing.assert_allclose(np_(_recon(g.u, g.s, g.v)), np_(_recon(w.u, w.s, w.v)),
                                        atol=1e-10, rtol=0)
+
+
+def _sparse_inputs(rng, bsz, m, n, nnz, k, shared):
+    """COO entries with duplicates, padding entries and empty rows."""
+    lead = () if bsz is None else (bsz,)
+    coord_lead = () if shared else lead
+    rows = rng.integers(0, m // 2, coord_lead + (nnz,)).astype(np.int32)   # upper rows only
+    cols = rng.integers(0, n, coord_lead + (nnz,)).astype(np.int32)
+    rows[..., 1], cols[..., 1] = rows[..., 0], cols[..., 0]
+    rows[..., -3:], cols[..., -3:] = 0, 0
+    vals = rng.normal(size=lead + (nnz,))
+    vals[..., -3:] = 0.0
+    return rows, cols, vals, rng.normal(size=lead + (n, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["single", "batched", "shared_coords", "transposed",
+                                  "shared_mat", "shared_mat_transposed"])
+def test_sparse_kernel_matches_plain(cuda_device, dtype, case):
+    """``shared_mat*``: the sketch's layout (per-member coordinates and values,
+    one test matrix for the whole batch, read at batch stride 0) at the
+    (32, 48) full-state drive's shape, for S @ Omega and S^T @ Psi."""
+    rng = np.random.default_rng(35)
+    m, n, nnz, k = 96, 80, 700, 16
+    bsz = None if case in ("single", "transposed") else 4
+    if case.startswith("shared_mat"):
+        m, n, nnz, bsz = 32, 48, 96, 128
+    rows, cols, vals, mat = _sparse_inputs(rng, bsz, m, n, nnz, k, case == "shared_coords")
+    out_rows = m
+    if case.startswith("shared_mat"):
+        mat = rng.normal(size=(n, k))
+    if case.endswith("transposed"):  # S^T @ mat: mat has m rows, out n
+        rows, cols, out_rows = cols, rows, n
+        mat = rng.normal(size=(m, k))
+    SP.check_coords(rows, cols, out_rows, mat.shape[-2])
+    args = (torch.as_tensor(rows, device=cuda_device), torch.as_tensor(cols, device=cuda_device),
+            t(vals, dtype, cuda_device), t(mat, dtype, cuda_device))
+    before = _build.LAUNCHES["sparse_project"]
+    got = SP.sparse_project(*args, out_rows)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sparse_project"] == before + 1
+    want = SP.sparse_project_plain(*args, out_rows)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max() / want.abs().max()) <= SPARSE_TOL[dtype]
+    assert torch.equal(got, SP.sparse_project(*args, out_rows))        # no atomics
+    if not case.endswith("transposed"):
+        assert float(got[..., m // 2:, :].abs().max()) == 0.0            # empty rows
+
+
+def test_sparse_apply_on_card_goes_through_kernel_f(cuda_device):
+    rng = np.random.default_rng(36)
+    probs = [svd_problem(rng, 16, 24) for _ in range(2)]
+    states = [convert.state_from_arrays(*p[:3], device=cuda_device) for p in probs]
+    rows = np.array([1, 1, 5, 5, 9], np.int32)
+    cols = np.array([0, 3, 3, 7, 20], np.int32)
+    ops = [updates.Sparse(rows, cols, rng.normal(size=5), rank=3) for _ in probs]
+    before = _build.LAUNCHES["sparse_project"]
+    got = api.apply_many(states, ops)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sparse_project"] == before + 2 * len(ops)
+    for g, p, op in zip(got, probs, ops):
+        dense = op.apply_dense((p[0] * p[1]) @ p[2][:, :16].T).numpy()
+        np.testing.assert_allclose(np_(_recon(g.u, g.s, g.v)), dense, atol=1e-10, rtol=0)
+
+
+def test_sparse_kernel_refuses_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(37)
+    rows, cols, vals, mat = _sparse_inputs(rng, None, 8, 6, 10, 2, True)
+    r, c = torch.as_tensor(rows, device=cuda_device), torch.as_tensor(cols, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="f32 or f64"):
+        SP.sparse_project(r, c, t(vals, torch.bfloat16, cuda_device),
+                          t(mat, torch.bfloat16, cuda_device), 8)
+    with pytest.raises(ValueError, match="mat: expected a CUDA tensor"):
+        SP.sparse_project(r, c, t(vals, torch.float64, cuda_device), t(mat), 8)
+    with pytest.raises(ValueError, match="rows: expected CUDA"):
+        SP.sparse_project(torch.as_tensor(rows), c, t(vals, torch.float64, cuda_device),
+                          t(mat, torch.float64, cuda_device), 8)

@@ -3,6 +3,18 @@ against a float64 truth: the numbers behind the f32 and bf16 tolerances of
 ``chip_smoke.py``.
 
     PYTHONPATH=src:tests python tools/port_vs_reference.py [--problems 128] [--seed 0]
+        [--part survey|drives|all]
+
+``--part drives`` runs ``chip_smoke.py``'s structured-update drives
+(``drive_inputs``: the same numpy inputs) on the CPU through the port and
+through the reference, each with ``method="fused"`` (what ``auto`` resolves
+to on both sides at these geometries; remove steps pin ``direct``), and
+prints, per drive and stage, port vs reference and each against the f64
+truth (see ``drives``); for drive 2 and 2x also the port's sensitivity to
+one rounding of its inputs; for drive 1 its distance to the truth taken
+apart (``_drive1_split``: the sketch alone, the rank-1 steps fed the exact
+SVD of the delta, the step and deflation where the error enters, and one
+rounding of the inputs).
 
 Two cases, printed as one JSON object:
 
@@ -36,6 +48,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -130,14 +144,258 @@ def survey(problems: int = 128, seed: int = 0) -> dict:
     return res
 
 
+def _scale_free(got, want):
+    """recon (||U S V^T - U' S' V'^T||_F / ||U' S' V'^T||_F) and sigma
+    (max_i |s_i - s'_i| / s'_i), the largest over the batch (chip_smoke.py's
+    measures); (u, s, v) stacked numpy, v cut to the rank's columns."""
+    rg, rw = (np.einsum("bik,bk,bjk->bij", x[0], x[1], x[2][..., :x[1].shape[-1]])
+              for x in (got, want))
+    recon = np.linalg.norm(rg - rw, axis=(1, 2)) / np.linalg.norm(rw, axis=(1, 2))
+    return {"recon": float(recon.max()),
+            "sigma": float((np.abs(got[1] - want[1]) / np.abs(want[1])).max())}
+
+
+def _vs_truth(out, truth):
+    """max over the batch of |U S V^T - T| / sigma_max(T) (the top-r
+    reconstruction of T for a rank-r state), as chip_smoke.py reads it."""
+    u, s, v = out
+    r = s.shape[-1]
+    tu, ts, tvt = np.linalg.svd(truth, full_matrices=False)
+    target = np.einsum("bik,bk,bkj->bij", tu[..., :r], ts[..., :r], tvt[..., :r, :])
+    rec = np.einsum("bik,bk,bjk->bij", u, s, v[..., :r])
+    return float((np.abs(rec - target).max(axis=(1, 2)) / ts[:, 0]).max())
+
+
+def _arrays(states, stacked):
+    if stacked:
+        return [np.asarray(getattr(states, f), np.float64) for f in ("u", "s", "v")]
+    return [np.stack([np.asarray(getattr(x, f), np.float64) for x in states]) for f in ("u", "s", "v")]
+
+
+def _run_stages(states, stages, pol):
+    from repro_torch import api
+
+    outs = []
+    for ops in stages:
+        states = api.apply_many(states, ops, pol)
+        outs.append(states)
+    return outs
+
+
+def _one_rounding(run, factors, dtype, trials: int = 3):
+    """The route's own sensitivity: ``run`` on the factors with each entry
+    perturbed by one rounding of ``dtype`` (relative N(0, eps/2)) against
+    ``run`` on the factors as they are, by ``_scale_free``, the largest over
+    ``trials`` perturbations; one entry per stage ``run`` returns."""
+    eps = float(torch.finfo(dtype).eps)
+    base = run(factors)
+    worst = [{"recon": 0.0, "sigma": 0.0} for _ in base]
+    for t in range(1, trials + 1):
+        g = np.random.default_rng(t)
+        fs = [tuple(x * (1 + 0.5 * eps * g.normal(size=np.shape(x))) for x in f) for f in factors]
+        for w, got, want in zip(worst, run(fs), base):
+            e = _scale_free(got, want)
+            for k in w:
+                w[k] = max(w[k], e[k])
+    return worst
+
+
+def _truth_err(out, truth, m):
+    """max over members of |U S V[:, :m]^T - T| and |s - s_T|, over sigma_max
+    (chip_smoke.py's drive-1 measure)."""
+    u, s, v = (np.asarray(x, np.float64) for x in out)
+    s_t = np.linalg.svd(truth, compute_uv=False)
+    rec = np.einsum("bik,bk,bjk->bij", u, s, v[..., :m])
+    return max(float((np.abs(rec - truth).max(axis=(1, 2)) / s_t[:, 0]).max()),
+               float((np.abs(s - s_t).max(axis=1) / s_t[:, 0]).max()))
+
+
+def _drive1_split(d1, op, truth, rapi) -> dict:
+    """Drive 1's distance to the dense truth taken apart: the sketch of S
+    against S; the 8 rank-1 steps fed S's exact top-8 SVD (port fused and
+    direct, reference fused), step by step; the step and member where the
+    error enters, with the left side's second eigen-update there (the z
+    component its deflation drops, the tolerance, the vector's turn) and the
+    step rerun with a tighter deflation tolerance; and the whole drive under
+    one rounding of its inputs."""
+    from repro_torch import api
+    from repro_torch.core import svd_update as su
+    from repro_torch.core.eigh_update import apply_update, eigenvalues, make_plan
+    from repro_torch.updates import sketch
+
+    u, s, v = d1["u"], d1["s"], d1["v"]
+    m, n = u.shape[1], v.shape[1]
+    a0 = np.einsum("bik,bk,bjk->bij", u, s, v[..., :m])
+    delta = truth - a0
+    out = {}
+    us, ss, vs = (x.numpy() for x in sketch.sparse_sketch_svd(
+        torch.as_tensor(d1["rows"]), torch.as_tensor(d1["cols"]), torch.as_tensor(d1["vals"]),
+        m=m, n=n, k=d1["rank"]))
+    s_t = np.linalg.svd(truth, compute_uv=False)[:, 0]
+    out["sketch_vs_S_over_sigma_max"] = float(
+        (np.abs(np.einsum("bik,bk,bjk->bij", us, ss, vs) - delta).max(axis=(1, 2)) / s_t).max())
+    out["rank_S_max"] = int(max(np.linalg.matrix_rank(x) for x in delta))
+    du, ds, dvt = np.linalg.svd(delta)
+    k = d1["rank"]
+    a_k = (du[..., :k] * ds[:, None, :k]).transpose(0, 2, 1)
+    b_k = dvt[:, :k, :]
+    for method in ("fused", "direct"):
+        st = api.update_rank_k(api.SvdState.from_factors(u, s, v, device="cpu"), a_k, b_k,
+                               api.UpdatePolicy(method=method))
+        out[f"exact_top8_steps_port_{method}_vs_truth"] = _truth_err((st.u, st.s, st.v), truth, m)
+    rst = rapi.update_rank_k(rapi.SvdState.from_factors(*(jnp.asarray(x) for x in (u, s, v))),
+                             jnp.asarray(a_k), jnp.asarray(b_k), rapi.UpdatePolicy(method="fused"))
+    out["exact_top8_steps_reference_fused_vs_truth"] = _truth_err((rst.u, rst.s, rst.v), truth, m)
+    # step by step (direct route), each step against its own dense truth
+    st = api.SvdState.from_factors(u, s, v, device="cpu")
+    cur, per_step, before = a0, [], None
+    for i in range(k):
+        prev, st = st, api.update(st, a_k[:, i], b_k[:, i], api.UpdatePolicy(method="direct"))
+        cur = cur + a_k[:, i, :, None] * b_k[:, i, None, :]
+        rec = np.einsum("bik,bk,bjk->bij", st.u.numpy(), st.s.numpy(), st.v.numpy()[..., :m])
+        errs = np.abs(rec - cur).max(axis=(1, 2)) / np.linalg.svd(cur, compute_uv=False)[:, 0]
+        per_step.append({"max": float(errs.max()), "members_above_1e-12": int((errs > 1e-12).sum())})
+        if before is None and errs.max() > 1e-12:
+            before = (i, int(errs.argmax()), prev)
+    out["exact_top8_steps_direct_per_step"] = per_step
+    if before is not None:
+        i, j, prev = before
+        t = lambda x: torch.as_tensor(np.asarray(x))[j:j + 1]  # noqa: E731
+        uu, sv, vv, aa, bb = t(prev.u), t(prev.s), t(prev.v), t(a_k[:, i]), t(b_k[:, i])
+        # the left side's two chained eigen-updates, as core/svd_update.py runs them
+        b_t = su._mv(uu, sv * su._mtv(vv, bb)[:, :m])
+        rho1, rho2, qp, qn = su._rank2_symmetric_split((bb * bb).sum(1))
+        a1 = qp[0][:, None] * aa + qp[1][:, None] * b_t
+        b1 = qn[0][:, None] * aa + qn[1][:, None] * b_t
+        plan1 = make_plan(sv * sv, su._mtv(uu, a1), rho1, rho_positive=True)
+        q1, d1v = apply_update(plan1, uu), eigenvalues(plan1)
+        z2 = su._mtv(q1, b1)
+        plan2 = make_plan(d1v, z2, rho2, rho_positive=False)
+        q2 = apply_update(plan2, torch.eye(m, dtype=torch.float64)[None])[0].numpy()
+        mat = torch.diag(d1v[0]) + rho2[0] * torch.outer(z2[0], z2[0])
+        exact = torch.linalg.eigh(mat)[1].numpy()
+        turn = np.sqrt(np.clip(1 - np.sum(q2 * exact, 0) ** 2, 0, None))
+        scale = max(float(d1v.abs().max()), float(rho2.abs()[0] * (z2 * z2).sum()))
+        dropped = (~plan2.valid[0]).nonzero().flatten()
+        out["first_step_off"] = {
+            "step": i, "member": j,
+            "second_left_eigen_update": {
+                "n_deflated": int(dropped.numel()),
+                "smallest_abs_z": float(z2.abs().min()),
+                "rho": float(rho2[0]),
+                "tol_64_eps_scale": 64 * float(torch.finfo(torch.float64).eps) * scale,
+                "largest_vector_turn_rad": float(turn.max())}}
+        for rtol in (None, 1e-20):
+            r = su._svd_update_impl(uu, sv, vv, aa, bb, method="direct", deflate_rtol=rtol)
+            cur_j = a0[j] + np.einsum("ki,kj->ij", a_k[j, :i + 1], b_k[j, :i + 1])
+            rec = (r.u[0].numpy() * r.s[0].numpy()) @ r.v[0].numpy()[:, :m].T
+            out["first_step_off"][f"step_vs_truth_deflate_rtol_{rtol or '64eps'}"] = float(
+                np.abs(rec - cur_j).max() / np.linalg.svd(cur_j, compute_uv=False)[0])
+
+    def whole(fs):
+        (uu, su_, vv, vals), = fs
+        st = api.SvdState.from_factors(uu, su_, vv, device="cpu")
+        o = api.apply(st, type(op)(d1["rows"], d1["cols"], vals, rank=k),
+                      api.UpdatePolicy(method="fused"))
+        return [[o.u.numpy(), o.s.numpy(), o.v.numpy()]]
+
+    out["port_one_rounding"] = _one_rounding(whole, [(u, s, v, d1["vals"])], torch.float64)[0]
+    return out
+
+
+def drives() -> dict:
+    """chip_smoke.py's drives on the CPU: port vs reference vs truth."""
+    from chip_smoke import drive_inputs
+    from repro_torch import api, updates
+
+    rapi, ru = ref("api"), ref("updates")
+    inputs = drive_inputs()
+    pol, rpol = api.UpdatePolicy(method="fused"), rapi.UpdatePolicy(method="fused")
+    res = {}
+
+    d1 = inputs["1"]
+    m1 = d1["u"].shape[1]
+    op = updates.Sparse(d1["rows"], d1["cols"], d1["vals"], rank=d1["rank"])
+    rop = ru.Sparse(d1["rows"], d1["cols"], d1["vals"], rank=d1["rank"])
+    got = _arrays(api.apply(api.SvdState.from_factors(d1["u"], d1["s"], d1["v"], device="cpu"),
+                            op, pol), True)
+    want = _arrays(rapi.apply(rapi.SvdState.from_factors(*map(jnp.asarray, (d1["u"], d1["s"],
+                                                                             d1["v"]))),
+                              rop, rpol), True)
+    truth = op.apply_dense(np.einsum("bik,bk,bjk->bij", d1["u"], d1["s"],
+                                     d1["v"][..., :m1])).numpy()
+    res["1 full B128 (32,48) f64 Sparse rank 8"] = {
+        "port_vs_reference": _scale_free(got, want), "port_vs_truth": _vs_truth(got, truth),
+        "reference_vs_truth": _vs_truth(want, truth),
+        **_drive1_split(d1, op, truth, rapi)}
+
+    d2 = inputs["2"]
+    for drive, key in (("2", "sparse"), ("2x", "sparse_exact")):
+        stages = [([updates.Compose((updates.Decay(d2["decay"]), updates.Sparse(*c, rank=d2["rank"])))
+                    for c in d2[key]],
+                   [ru.Compose((ru.Decay(d2["decay"]), ru.Sparse(*c, rank=d2["rank"])))
+                    for c in d2[key]]),
+                  ([updates.RankK(*uv) for uv in d2["rank_k"]], [ru.RankK(*uv) for uv in d2["rank_k"]])]
+        names = ("Compose(Decay, Sparse rank 8)", "then RankK(32)")
+        truth = np.stack([(u * s) @ v.T for u, s, v in d2["factors"]])
+        truths = []
+        for ops, _ in stages:
+            truth = np.stack([o.apply_dense(t).numpy() for o, t in zip(ops, truth)])
+            truths.append(truth)
+        port64 = []
+        for dt, jdt in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
+            sts = [api.SvdState.from_factors(*f, device="cpu", dtype=dt) for f in d2["factors"]]
+            rsts = [rapi.SvdState.from_factors(*(jnp.asarray(x, jdt) for x in f)) for f in d2["factors"]]
+            sens = _one_rounding(lambda fs: [_arrays(x, False) for x in _run_stages(
+                [api.SvdState.from_factors(*f, device="cpu", dtype=dt) for f in fs],
+                [o for o, _ in stages], pol)], d2["factors"], dt)
+            for j, ((ops, rops), name, truth) in enumerate(zip(stages, names, truths)):
+                sts = api.apply_many(sts, ops, pol)
+                rsts = rapi.apply_many(rsts, rops, rpol)
+                got, want = _arrays(sts, False), _arrays(rsts, False)
+                if dt == torch.float64:
+                    port64.append(got)
+                res[f"{drive} truncated B16 (1024,1024) r16 {key} {dt} {name}"] = {
+                    "sigma_max_port": float(got[1][:, 0].max()),
+                    "sigma_max_reference": float(want[1][:, 0].max()),
+                    "sigma_max_truth": float(np.linalg.svd(truth, compute_uv=False)[:, 0].max()),
+                    "port_vs_reference": _scale_free(got, want),
+                    "port_vs_port_f64": _scale_free(got, port64[j]),
+                    "reference_vs_port_f64": _scale_free(want, port64[j]),
+                    "port_one_rounding": sens[j],
+                    "port_vs_truth": _vs_truth(got, truth),
+                    "reference_vs_truth": _vs_truth(want, truth)}
+
+    d3 = inputs["3"]
+    cut = d3["factors"][0][0].shape[0] - d3["keep"]
+    sts = [api.SvdState.from_factors(*f, device="cpu") for f in d3["factors"]]
+    rsts = [rapi.SvdState.from_factors(*map(jnp.asarray, f)) for f in d3["factors"]]
+    got = _arrays(api.apply_many(sts, [updates.Window(d3["keep"], lam=d3["lam"])] * len(sts), pol),
+                  False)
+    want = _arrays(rapi.apply_many(rsts, [ru.Window(d3["keep"], lam=d3["lam"])] * len(sts), rpol),
+                   False)
+    truth = np.stack([d3["lam"] * ((u * s) @ v.T)[cut:] for u, s, v in d3["factors"]])
+    res["3 Window B4 (1024,768) r8 cut 64 f64"] = {
+        "port_vs_reference": _scale_free(got, want), "port_vs_truth": _vs_truth(got, truth),
+        "reference_vs_truth": _vs_truth(want, truth)}
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--problems", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--part", choices=("survey", "drives", "all"), default="all")
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(4)
-    print(json.dumps(survey(args.problems, args.seed), indent=1))
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))   # chip_smoke.py
+    out = {}
+    if args.part in ("survey", "all"):
+        out["survey"] = survey(args.problems, args.seed)
+    if args.part in ("drives", "all"):
+        out["drives"] = drives()
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":
