@@ -12,23 +12,31 @@ result) when it fails:
    sm_90a (in parallel) into ``build/repro_torch/`` and prints the seconds;
 2. kernels against their plain PyTorch versions on the card, at the shapes
    the main path and the benchmarks give them, each with its tolerance (see
-   ``TOL``, ``SPARSE_TOL``), and each check shown to reject planted faults;
-   bf16 storage against the reference's ``BF16_ERROR_BUDGET``;
+   ``TOL``, ``SPARSE_TOL``, ``SECULAR_TOL``, ``NEAR_TOL``), and each check
+   shown to reject planted faults; bf16 storage against the reference's
+   ``BF16_ERROR_BUDGET``;
 3. the main path: ``api.update_many`` / ``api.update`` with the default policy
    (auto -> fused kernels A and B) and with ``method="pallas"`` (kernel C),
    checked by reconstruction (f64) and against the same route on the CPU;
    then the structured-update path, four drives of ``api.apply`` /
    ``api.apply_many`` (``Sparse`` through kernel F, rank-1 steps through A and
    B, a ``Window`` downdate on the phase chain), each checked against the
-   dense truth or the same route on the CPU.  Before each drive the launch
-   counters are zeroed, after it they are read and held to the counts the
-   planner gives (``DRIVE_LAUNCHES``);
+   dense truth or the same route on the CPU; then the FMM route, five drives
+   of ``api.update`` / ``api.update_many`` (``auto`` above the fused gate,
+   and the README quickstart's ``method="fmm"``) whose near field is kernel
+   E, each held to the same route on the CPU, to the card's ``direct`` and,
+   for full states, to the dense truth, with the members whose FMM plan
+   overflowed named.  Before each drive the launch counters are zeroed, after
+   it they are read and held to the counts the planner gives
+   (``DRIVE_LAUNCHES``);
 4. times: median of CUDA-event timings after warm-up, for each kernel, its
    plain version and a PyTorch call that computes the same function (one
    batched ``torch.linalg.svd`` of the updated matrices for A and B,
    ``torch.sparse.mm`` on a CSR matrix for F; yardsticks the port never
-   calls), beside a bound from bytes and operations; and each drive end to
-   end.
+   calls; none computes D's or E's function, and E is shown beside the
+   einsum on a prebuilt ``near_inv`` as a reference point), beside a bound
+   from bytes and operations; each drive end to end; and the FMM route
+   against ``method="pallas"`` (kernel C) and ``direct`` at (1024, 1024).
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -36,6 +44,7 @@ The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -142,16 +151,61 @@ DRIVE1_TRUTH_LIMIT = 1e-7
 #     of RankK(k=32) (one rank-k step: 32 batched launches of B): 64 F and 80
 #     B over both dtypes;
 # (3) Window on truncated states: remove steps pin the phase chain, no kernel.
+# (3c) the FMM drives: every call runs 4 applies of each side's two eigen-plans
+#      (q1, q2, the materialised Q of the first plan, G), each side has n >= 96
+#      poles, and sign_fix is on: 8 batched launches of kernel E per call,
+#      none of any other kernel (the secular solve of the route is the plain
+#      core solver, as in the reference; kernel D is reached only through
+#      kernels.ops.secular_solve).
+_NONE = {"sparse_project": 0, "fused_update": 0, "fused_update_truncated": 0,
+         "cauchy_matmul": 0, "secular_solve": 0, "nearfield": 0}
+_FMM_CALL = {**_NONE, "nearfield": 8}
 DRIVE_LAUNCHES = {
-    "1 full exact": {"sparse_project": 2, "fused_update": 8, "fused_update_truncated": 0,
-                     "cauchy_matmul": 0},
-    "2 truncated": {"sparse_project": 64, "fused_update": 0, "fused_update_truncated": 80,
-                    "cauchy_matmul": 0},
-    "2x truncated exact": {"sparse_project": 64, "fused_update": 0, "fused_update_truncated": 80,
-                           "cauchy_matmul": 0},
-    "3 window": {"sparse_project": 0, "fused_update": 0, "fused_update_truncated": 0,
-                 "cauchy_matmul": 0},
+    "1 full exact": {**_NONE, "sparse_project": 2, "fused_update": 8},
+    "2 truncated": {**_NONE, "sparse_project": 64, "fused_update_truncated": 80},
+    "2x truncated exact": {**_NONE, "sparse_project": 64, "fused_update_truncated": 80},
+    "3 window": _NONE,
+    "i fmm single": _FMM_CALL,
+    "ii fmm batched": _FMM_CALL,
+    "iii quickstart": _FMM_CALL,
+    "iv truncated r127": _FMM_CALL,
+    "v fmm spread squares": _FMM_CALL,
 }
+# kernel D against its plain version: max |tau - tau'| over the widest
+# bracket (each root's terms summed in another order; the reference's own
+# test holds 1e-14 and 1e-5 absolute on brackets no wider than 0.5).  The
+# planted faults: every member's heaviest pole dropped, and one Newton step
+# too few, read on the roots that hug their poles at 4 bisection steps, where
+# the Newton steps carry the solve (after 58 the bisection alone converges).
+SECULAR_TOL = {"float64": 1e-13, "float32": 1e-5}
+# kernel E against its plain version, relative to max |out|: 3cap products
+# summed in another order.  Planted faults: the invalid source slots left
+# unmasked, and the sign of tau flipped.
+NEAR_TOL = {"float64": 1e-12, "float32": 1e-5}
+# the FMM drives on the card against the same route on the CPU and against
+# the card's own method="direct", by the measures of TOL (v[:, :m]).  Drive
+# (v) is the exception.  Its route (reference and port alike) decides some
+# steps by thresholds its data sits close to: the port and the reference on
+# the CPU differ there by 1.19e-10 (recon) and 2.25e-8 (sigma), the card and
+# the CPU by 1.10e-10 and 2.03e-8 (H100 run), while one rounding of the
+# inputs moves recon by only 9.5e-13 and sigma by 7.1e-10, and a deflation
+# tolerance twice the default moves two of the eight members by up to 1.7e-6
+# (tools/port_vs_reference.py --part fmm; the CPU).  Its limits sit above the
+# two implementations' distance and below the planted faults; its FMM
+# against its own direct route reads ~3e-14 (CPU), and the truth check below
+# holds it besides.
+FMM_TOL = {"recon": 1e-10, "sigma": 1e-10}
+FMM_TOL_V = {"recon": 1e-9, "sigma": 1e-7}
+# (i), (ii), (iii), (v) against the dense truth: max(|U S V[:, :m]^T - T|,
+# |s - s_T|) over sigma_max(T), the largest over the members:
+# (reference reading, limit).  The readings are the reference's on the CPU on
+# the same inputs (tools/port_vs_reference.py --part fmm; the port's CPU
+# route reads the same to 3 digits); the limits sit just above them.  (i) and
+# (ii) are the squared route's own error on uniform(1, 9) data (every FMM
+# plan there overflows, so it is the dense product's; direct reads the same),
+# (iii) is exact, (v) (where the FMM runs) reads 5.4e-9.
+FMM_TRUTH = {"i": (3.33e-7, 5e-7), "ii": (2.16e-7, 3e-7), "iii": (4.59e-14, 1e-13),
+             "v": (5.38e-9, 1e-8)}
 
 
 def log(*args):
@@ -211,6 +265,43 @@ def drive_inputs(seed: int = 1) -> dict:
     return {"1": one, "2": two, "3": three}
 
 
+def fmm_inputs(seed: int = 3) -> dict:
+    """The numpy inputs of the FMM drives (phase 3c), from one seed
+    (``tools/port_vs_reference.py --part fmm`` runs (i), (ii), (iii) and (v)
+    through the reference on the CPU).
+
+    i, ii. uniform(1, 9) matrices at (1024, 1024), the largest n of the
+       paper's Fig. 1/2 sweep (``benchmarks/fig1_2_runtime.py``), and
+       standard-normal pairs: one for (i), eight for (ii);
+    iii. the README quickstart's own data: ``default_rng(0)``, A standard
+       normal (200, 300), then a and b standard normal;
+    iv. four rank-127 states at (4096, 4096): QR-made orthonormal bases,
+       singular values 100 .. 1 geometric, standard-normal pairs;
+    v. eight full (1024, 1024) states from QR-made bases whose squared
+       singular values are evenly spaced from 1e4 down to 1, standard-normal
+       pairs: squares that fill the FMM's value grid evenly, so that no plan
+       overflows its box capacity (the squared spectra of (i) and (ii) crowd
+       the lowest boxes and overflow it).
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def orth(*shape):
+        return np.linalg.qr(rng.normal(size=shape))[0]
+
+    n = 1024
+    full = [(rng.uniform(1, 9, (n, n)), rng.normal(size=n), rng.normal(size=n)) for _ in range(9)]
+    quick = np.random.default_rng(0)
+    a_q = quick.normal(size=(200, 300))
+    iii = (a_q, quick.normal(size=200), quick.normal(size=300))
+    iv = [(orth(4096, 127), np.geomspace(100.0, 1.0, 127), orth(4096, 127),
+           rng.normal(size=4096), rng.normal(size=4096)) for _ in range(4)]
+    v = [(orth(n, n), np.sqrt(np.linspace(1e4, 1.0, n)), orth(n, n), rng.normal(size=n),
+          rng.normal(size=n)) for _ in range(8)]
+    return {"i": full[0], "ii": full[1:], "iii": iii, "iv": iv, "v": v}
+
+
 def require(ok, what: str) -> None:
     """Fail the run (an explicit raise: asserts vanish under ``python -O``)."""
     if not ok:
@@ -231,7 +322,11 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import api, convert, updates
+    from repro_torch.core import fmm as FMM
+    from repro_torch.core import secular as SEC
+    from repro_torch.core.eigh_update import make_plan
     from repro_torch.kernels import _build, cauchy_matmul as CM, fused_update as FU
+    from repro_torch.kernels import nearfield as NF, secular_newton as SN
     from repro_torch.kernels import sparse_proj as SP
     from repro_torch.updates import sketch
 
@@ -244,7 +339,7 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     # -- phase 1: build ---------------------------------------------------------
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     out_dir = _build.build_all()
     for name in _build.SOURCES:
         _build.library(name)
@@ -528,6 +623,112 @@ def main() -> int:
                 require(e > SPARSE_TOL[dn], f"{full_label}: the check passes a planted fault ({what})")
             sparse_cases[(label, dn)] = (args, out_rows, err * float(want.abs().max()))
 
+    # kernel D, the secular solve, at B=8 and N = M = 1024, f64 and f32: on
+    # brackets built as core.secular builds them from a real (d, z, rho)
+    # (d the squares of uniform(1, 9) values, every ninth z shrunk by 1e-5 so
+    # that its root hugs its pole), and on tests/test_kernels.py's random
+    # brackets
+    def secular_inputs(brackets, dtype):
+        g = np.random.default_rng(21 if brackets == "real" else 22)
+        bsz, nn = 8, 1024
+        if brackets == "random":
+            return [tt(x, dtype) for x in (
+                np.sort(g.uniform(0, 5, (bsz, nn)), axis=1), g.uniform(0.01, 1, (bsz, nn)),
+                np.full(bsz, 0.7), np.sort(g.uniform(0, 5, (bsz, nn)), axis=1),
+                np.zeros((bsz, nn)), g.uniform(0.01, 0.5, (bsz, nn)))]
+        d = np.sort(g.uniform(1, 9, (bsz, nn)) ** 2, axis=1)
+        z = g.normal(size=(bsz, nn))
+        z[:, ::9] *= 1e-5
+        rho = g.uniform(0.5, 2.0, bsz)
+        br = SEC.secular_brackets(tt(d, dtype), tt(z, dtype), tt(rho, dtype),
+                                  torch.full((bsz,), nn, device=dev))
+        return [tt(d, dtype), br.zc2, tt(rho, dtype), br.anchor_vals, br.lo, br.hi]
+
+    def secular_err(got, want, args, roots=slice(None)):
+        """max |tau - tau'| over the widest bracket, on the roots ``roots``."""
+        return (float((got - want)[:, roots].abs().max())
+                / float((args[5] - args[4])[:, roots].abs().max()))
+
+    secular_cases = {}
+    for dtype in (torch.float64, torch.float32):
+        dn = name_of(dtype)
+        for brackets in ("real", "random"):
+            args = secular_inputs(brackets, dtype)
+            got = SN.secular_solve_cuda(*args)
+            want = SN.secular_solve_plain(*args)
+            torch.cuda.synchronize()
+            label = f"D secular_solve B8 N=M=1024 {brackets} brackets {dn}, over the widest bracket"
+            err = check(label, secular_err(got, want, args), SECULAR_TOL[dn])
+            require(torch.equal(got, SN.secular_solve_cuda(*args)), f"{label}: two launches differ")
+            secular_cases[(brackets, dn)] = (args, float((got - want).abs().max()))
+            if brackets != "real":
+                continue
+            hug = slice(0, None, 9)
+            want4 = SN.secular_solve_plain(*args, n_bisect=4, n_newton=4)
+            check(f"  D at 4 bisection + 4 Newton steps {dn}, pole-hugging roots",
+                  secular_err(SN.secular_solve_cuda(*args, n_bisect=4, n_newton=4), want4, args,
+                              hug), SECULAR_TOL[dn])
+            dropped = args[1].clone()
+            dropped.scatter_(1, dropped.argmax(1, keepdim=True), 0.0)
+            for what, e in (
+                    ("every member's heaviest pole dropped",
+                     secular_err(SN.secular_solve_cuda(args[0], dropped, *args[2:]), want, args)),
+                    ("one Newton step too few (4 + 3 against 4 + 4), pole-hugging roots",
+                     secular_err(SN.secular_solve_cuda(*args, n_bisect=4, n_newton=3), want4,
+                                 args, hug))):
+                log(f"    planted fault, {what}: {e:.3e} (tol {SECULAR_TOL[dn]:.0e})")
+                require(e > SECULAR_TOL[dn], f"{label}: the check passes a planted fault ({what})")
+
+    # kernel E, the FMM near field, at the shapes the FMM drives give it: the
+    # eigen-plan of a full (1024, 1024) update (d the squared singular values
+    # of drive (ii)'s matrices, R 1024, nb 32, 3cap 408, capt 136) at B=1 and
+    # B=8, and of a truncated rank-127 update's (128, 128) core (d the squares
+    # of drive (iv)'s singular values and a zero, R 128, nb 4, B=4); z normal,
+    # rho 1, the weights normal
+    fmm_in = fmm_inputs()
+    sv_ii = torch.linalg.svdvals(torch.as_tensor(np.stack([x[0] for x in fmm_in["ii"]]),
+                                                 device=dev))
+    s_iv = np.append(fmm_in["iv"][0][1], 0.0)
+
+    def near_inputs(which, bsz):
+        g = np.random.default_rng(31)
+        if which == "full":
+            d = torch.flip(sv_ii[:bsz] ** 2, dims=(1,))
+        else:
+            d = tt(np.tile(np.sort(s_iv ** 2), (bsz, 1)), torch.float64)
+        nn = d.shape[1]
+        plan = make_plan(d, tt(g.normal(size=(bsz, nn)), torch.float64),
+                         torch.ones(bsz, dtype=torch.float64, device=dev), rho_positive=True,
+                         build_fmm=True).fmm
+        return plan, tt(g.normal(size=(bsz, nn, nn)), torch.float64)
+
+    def near_err(got, want):
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    near_cases = {}
+    for which, bsz in (("full", 1), ("full", 8), ("truncated", 4)):
+        plan, w = near_inputs(which, bsz)
+        unmasked = FMM.near_operands(dataclasses.replace(
+            plan, near_src_mask=torch.ones_like(plan.near_src_mask)), w)[0]
+        operands = FMM.near_operands(plan, w)
+        for dtype in (torch.float64, torch.float32):
+            dn = name_of(dtype)
+            args = [x.to(dtype) if x.is_floating_point() else x for x in operands]
+            got = NF.nearfield_cuda(*args)
+            want = NF.nearfield_plain(*args)
+            torch.cuda.synchronize()
+            shape = (f"B{bsz} R{w.shape[1]} nb{plan.nb} 3cap{3 * plan.cap} capt{plan.capt}")
+            label = f"E nearfield {which} {shape} {dn}, relative to max |out|"
+            err = check(label, near_err(got, want), NEAR_TOL[dn])
+            require(torch.equal(got, NF.nearfield_cuda(*args)), f"{label}: two launches differ")
+            for what, fault in (("invalid source slots unmasked", [unmasked.to(dtype)] + args[1:]),
+                                ("tau's sign flipped", args[:3] + [-args[3], args[4]])):
+                e = near_err(NF.nearfield_cuda(*fault), want)
+                log(f"    planted fault, {what}: {e:.3e} (tol {NEAR_TOL[dn]:.0e})")
+                require(e > NEAR_TOL[dn], f"{label}: the check passes a planted fault ({what})")
+            near_cases[(which, bsz, dn)] = (shape, args, err * float(want.abs().max()))
+        del plan, w, unmasked, operands
+
     # -- phase 3: the main path ---------------------------------------------------
     log("main path (api.update_many / api.update):")
     m, n, bsz = 128, 192, 4
@@ -740,8 +941,83 @@ def main() -> int:
     drive_timing.append((f"3 apply_many B{b3} ({m3},{n3}) r{r3} float64 Window(cut {cut})",
                          lambda: api.apply_many(sts3, [op3] * b3)))
 
+    # -- phase 3c: the FMM route (api.update / api.update_many) --------------------
+    log("FMM route (auto above the fused gate, and method='fmm'):")
+    fmm_overflows = {}
+    fmm_rows = []
+
+    def cpu_copy(sts):
+        return [convert.state_from_arrays(**convert.state_to_arrays(st), device="cpu") for st in sts]
+
+    def truth_err(outs, mats, pairs):
+        """max over the members of max(|U S V[:, :m]^T - T|, |s - s_T|) / sigma_max(T)."""
+        worst = 0.0
+        for out, a_mat, (a, b) in zip(outs, mats, pairs):
+            t_mat = torch.as_tensor(a_mat + np.outer(a, b), device=dev)
+            s_t = torch.linalg.svdvals(t_mat)
+            k = out.s.shape[0]
+            rec = (out.u * out.s) @ out.v[:, :k].T
+            worst = max(worst, float(torch.maximum((rec - t_mat).abs().max(),
+                                                   (out.s - s_t).abs().max()) / s_t[0]))
+        return worst
+
+    fmm_drives = {
+        "i fmm single": ("(i) api.update (1024,1024) f64 uniform(1, 9), auto", [fmm_in["i"]], None),
+        "ii fmm batched": ("(ii) api.update_many B8 (1024,1024) f64 uniform(1, 9), auto",
+                           fmm_in["ii"], None),
+        "iii quickstart": ("(iii) README quickstart (200,300) f64, method='fmm'", [fmm_in["iii"]],
+                           api.UpdatePolicy(method="fmm")),
+        "iv truncated r127": ("(iv) api.update_many B4 (4096,4096) rank 127 f64, auto",
+                              fmm_in["iv"], None),
+        "v fmm spread squares": ("(v) api.update_many B8 (1024,1024) f64 spread squares, auto",
+                                 fmm_in["v"], None),
+    }
+    for name, (label, members, pol) in fmm_drives.items():
+        if len(members[0]) == 3:
+            mats = [x[0] for x in members]
+            sts = [api.SvdState.from_dense(a_mat, device=dev) for a_mat in mats]
+        else:
+            mats = [(u * sv) @ v.T for u, sv, v, _, _ in members]
+            sts = [api.SvdState.from_factors(u, sv, v, device=dev) for u, sv, v, _, _ in members]
+        pairs = [x[-2:] for x in members]
+        resolved = (pol or api.UpdatePolicy()).resolve_method(
+            sts[0].n if sts[0].is_full else sts[0].rank + 1, m=sts[0].m, n=sts[0].n,
+            rank=None if sts[0].is_full else sts[0].rank)
+        require(resolved == "fmm", f"drive {label}: the policy resolves to {resolved}, not fmm")
+
+        def call(sts_=sts, pol_=pol, pairs_=pairs):
+            if len(sts_) == 1:
+                return [api.update(sts_[0], *pairs_[0], pol_)]
+            return list(api.update_many(sts_, [p[0] for p in pairs_], [p[1] for p in pairs_], pol_))
+
+        FMM.OVERFLOWED.clear()
+        outs = drive(name, call)
+        fmm_overflows[name] = list(FMM.OVERFLOWED)
+        log(f"  {label}: members whose FMM plan overflowed its box capacity (those take the "
+            f"dense product), one entry per plan: {fmm_overflows[name] or 'none'}")
+        require(all(bool(torch.isfinite(x).all()) for o in outs for x in (o.u, o.s, o.v)),
+                f"{label}: non-finite output")
+        got = stacked(outs)
+        cpu_out = call(cpu_copy(sts))
+        tol = FMM_TOL_V if name.startswith("v ") else FMM_TOL
+        check_pair(f"{label}: card vs CPU", got, stacked(cpu_out), tol)
+        planted_faults(label, got, stacked(cpu_out), stacked(sts)[2], tol)
+        direct = call(sts, (pol or api.UpdatePolicy()).replace(method="direct"))
+        check_pair(f"{label}: card vs the card's method='direct'", got, stacked(direct), tol)
+        key = name.split()[0]
+        if key in ("iii", "iv"):    # (i), (ii) and (v) are timed with the routes below
+            drive_timing.append((label, call))
+        if not sts[0].is_full:      # a rank-127 state of a rank-128 sum: no exact truth
+            continue
+        e = truth_err(outs, mats, pairs)
+        reading, limit = FMM_TRUTH[key]
+        log(f"  {label}: vs dense truth {e:.3e} (limit {limit:.3g}; the reference on the CPU "
+            f"reads {reading:.3e})")
+        require(np.isfinite(e) and e <= limit, f"{label}: {e} from the truth, above {limit}")
+
     # -- phase 4: times -------------------------------------------------------------
-    log("times (median of CUDA events after warm-up):")
+    log(f"times (median of CUDA events after warm-up), from {time.perf_counter() - t_run:.0f} s "
+        f"into the run:")
 
     def time_ms(fn, budget_ms=1500.0):
         fn()
@@ -865,12 +1141,84 @@ def main() -> int:
         log(f"  F {dn} {label}: kernel {row['ms']:.4f} ms | with prep {row['ms_with_prep']:.4f} ms "
             f"| plain {row['plain_ms']:.4f} ms | torch.sparse.mm {row['library_ms']:.4f} ms "
             f"| bound {b_ms:.5f} ms ({b_by})")
+    # kernel D: every step of every root reads all N poles; 5 operations a
+    # pole term in a bisection step (2 subtractions, a division, a
+    # multiply-add) and 7 in a Newton step; poles, weights, rho and three
+    # numbers a root read once, tau written once
+    d_rows = []
+    for (brackets, dn), (args, err) in secular_cases.items():
+        bsz, nn = args[0].shape
+        mm = args[3].shape[1]
+        isz = args[0].element_size()
+        nbytes = isz * (2 * bsz * nn + bsz + 4 * bsz * mm)
+        ops = bsz * mm * nn * (58 * 5 + 4 * 7)
+        b_ms, b_by = bound(nbytes, ops, dn)
+        row = {"kernel": "D", "dtype": dn, "shape": f"B{bsz} N=M={nn} {brackets} brackets",
+               "ms": time_ms(lambda a=args: SN.secular_solve_cuda(*a)),
+               "plain_ms": time_ms(lambda a=args: SN.secular_solve_plain(*a)), "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops, "max_abs_err": err}
+        d_rows.append(row)
+        log(f"  D {dn} {row['shape']}: kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.3f} ms "
+            f"| bound {b_ms:.5f} ms ({b_by})")
+    # kernel E: 2 operations a multiply-add over R x nb x 3cap x capt, and 4 to
+    # build each block entry (a subtraction, an addition, a division, the
+    # mask); w_near and the coordinates read once, out written once.  The
+    # yardstick is no single call of the same function: it is the einsum of
+    # the reference's plan against a prebuilt near_inv (the plain version's
+    # blocks, built outside the timing), a reference point only
+    e_rows = []
+    for (which, bsz, dn), (shape, args, err) in near_cases.items():
+        w_near, x_near, av_b, tau_b, tm = args
+        _, rr, nbx, c3 = w_near.shape
+        capt = av_b.shape[-1]
+        isz = w_near.element_size()
+        nbytes = isz * (bsz * rr * nbx * c3 + bsz * nbx * c3 + 3 * bsz * nbx * capt
+                        + bsz * rr * nbx * capt)
+        ops = 2 * bsz * rr * nbx * c3 * capt + 4 * bsz * nbx * c3 * capt
+        denom = (av_b[:, :, None, :] - x_near[:, :, :, None]) + tau_b[:, :, None, :]
+        near_inv = torch.where(denom != 0.0, 1.0 / torch.where(denom == 0.0, 1.0, denom),
+                               0.0) * tm.to(w_near.dtype)[:, :, None, :]
+        b_ms, b_by = bound(nbytes, ops, dn)
+        row = {"kernel": "E", "dtype": dn, "shape": f"{which} {shape}",
+               "ms": time_ms(lambda a=args: NF.nearfield_cuda(*a)),
+               "plain_ms": time_ms(lambda a=args: NF.nearfield_plain(*a)), "library_ms": None,
+               "einsum_near_inv_ms": time_ms(
+                   lambda w_=w_near, c_=near_inv: torch.einsum("zrbc,zbct->zrbt", w_, c_)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops, "max_abs_err": err}
+        e_rows.append(row)
+        del near_inv, denom
+        log(f"  E {dn} {row['shape']}: kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.3f} ms "
+            f"| einsum on a prebuilt near_inv (reference point) {row['einsum_near_inv_ms']:.4f} ms "
+            f"| bound {b_ms:.5f} ms ({b_by})")
+    # the FMM route against kernel C (method="pallas") and the phase chain
+    # (direct) on the same states at (1024, 1024) f64: drive (i) (B=1), (ii)
+    # (B=8) and (v) (B=8); the fmm rows are those drives end to end
+    route_rows = []
+    for label, members in (("uniform(1, 9)", [fmm_in["i"]]), ("uniform(1, 9)", fmm_in["ii"]),
+                           ("spread squares", fmm_in["v"])):
+        if len(members[0]) == 3:
+            sts = [api.SvdState.from_dense(x[0], device=dev) for x in members]
+        else:
+            sts = [api.SvdState.from_factors(*x[:3], device=dev) for x in members]
+        pairs = [x[-2:] for x in members]
+        for method in ("fmm", "pallas", "direct"):
+            pol = api.UpdatePolicy(method=method)
+            if len(sts) == 1:
+                fn = lambda s_=sts, p_=pol, q_=pairs: api.update(s_[0], *q_[0], p_)  # noqa: E731
+            else:
+                fn = lambda s_=sts, p_=pol, q_=pairs: api.update_many(  # noqa: E731
+                    s_, [p[0] for p in q_], [p[1] for p in q_], p_)
+            route_rows.append({"route": method, "states": f"B{len(sts)} (1024,1024) f64 {label}",
+                               "ms": time_ms(fn)})
+            log(f"  route {method} B{len(sts)} (1024,1024) f64 {label}: {route_rows[-1]['ms']:.2f} ms "
+                f"end to end")
     drive_rows = []
     for label, fn in drive_timing:
         drive_rows.append({"drive": label, "ms": time_ms(fn)})
         log(f"  drive {label}: {drive_rows[-1]['ms']:.3f} ms end to end")
-    log("timings " + json.dumps({"timings": rows + f_rows, "drives": drive_rows,
-                                 "drive_launches": drive_launches, "card": card}))
+    log("timings " + json.dumps({"timings": rows + f_rows + d_rows + e_rows, "drives": drive_rows,
+                                 "routes": route_rows, "drive_launches": drive_launches,
+                                 "fmm_overflowed": fmm_overflows, "card": card}))
 
     headline = {"C": ("float64",), "A": ("float64", 32), "B": ("float32", 512)}
     meta = {
@@ -901,6 +1249,25 @@ def main() -> int:
                     "ms_with_prep": row["ms_with_prep"], "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"], "shape": f"float64 {row['shape']}"})
+    # kernels D and E at their headline shapes (f64: B8 real brackets; the
+    # full plan at B8); launches over the main path and every drive
+    for name, source, replaces, counter, row in (
+            ("secular_solve", "src/repro_torch/csrc/secular_newton.cu",
+             "src/repro/kernels/secular_newton.py:47", "secular_solve",
+             next(rw for rw in d_rows if rw["dtype"] == "float64" and "real" in rw["shape"])),
+            ("nearfield", "src/repro_torch/csrc/nearfield.cu", "src/repro/kernels/nearfield.py:39",
+             "nearfield", next(rw for rw in e_rows if rw["dtype"] == "float64"
+                               and rw["shape"].startswith("full B8")))):
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[counter] + sum(d[counter]
+                                                            for d in drive_launches.values()),
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": None,
+                        **({"einsum_near_inv_ms": row["einsum_near_inv_ms"]}
+                           if "einsum_near_inv_ms" in row else {}),
+                        "shape": f"float64 {row['shape']}"})
+    log(f"run: {time.perf_counter() - t_run:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

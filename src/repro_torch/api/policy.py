@@ -3,8 +3,9 @@
 Counterpart of ``repro.api.policy``.  ``resolve_method`` keeps the
 reference's routing rule (the fused gate of ``kernels.fused_update`` with its
 8 MiB budget, then the FMM floor), so that ``method="auto"`` picks the same
-route in both packages for the same geometry.  The gate is kept for route
-parity with the reference; it is not derived from this card.
+route in both packages for the same geometry, and ``engine_key`` returns the
+reference's 8-tuple.  The gate is kept for route parity with the reference;
+it is not derived from this card.
 """
 
 from __future__ import annotations
@@ -14,14 +15,13 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.eigh_update import FMM_MIN_N
+
 __all__ = ["UpdatePolicy", "METHODS", "FMM_MIN_N", "as_torch_dtype"]
 
 # "pallas" is the public name of the Cauchy-kernel route (engine name
 # "kernel"); "fast" is the reference's host-side benchmark baseline.
 METHODS = ("auto", "direct", "fmm", "fast", "pallas", "kernel", "fused")
-
-# the reference's FMM floor (repro.core.eigh_update._FMM_MIN_N)
-FMM_MIN_N = 96
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
            "float32": torch.float32, "float64": torch.float64}
@@ -42,8 +42,9 @@ def as_torch_dtype(dt) -> torch.dtype:
 class UpdatePolicy:
     """How a rank-1 update runs.
 
-    method         auto | direct | pallas | fused (| kernel alias); fmm and
-                   fast are refused by the engine
+    method         auto | direct | fmm | pallas | fused (| kernel alias);
+                   fast is refused (a host-side benchmark baseline)
+    fmm_p          Chebyshev order of the FMM route (error ~ (3+2 sqrt 2)^-p)
     sign_fix       reconcile left/right singular-vector signs
     deflate_rtol   deflation tolerance override (None = default)
     precision      float32 matmul precision (None = "highest": no TF32)
@@ -55,9 +56,16 @@ class UpdatePolicy:
 
     The sketch knobs key the planner's schedule cache (``sketch_params``), not
     the engine: the rank-1 update itself does not depend on them.
+
+    >>> pol = UpdatePolicy(method="fmm", fmm_p=12)
+    >>> pol.replace(truncate_to=8).truncate_to
+    8
+    >>> hash(pol) == hash(UpdatePolicy(method="fmm", fmm_p=12))
+    True
     """
 
     method: str = "auto"
+    fmm_p: int = 20
     sign_fix: bool = True
     deflate_rtol: float | None = None
     precision: str | None = None
@@ -104,12 +112,12 @@ class UpdatePolicy:
 
     def engine_key(self, problem_n: int, *, m: int | None = None, n: int | None = None,
                    rank: int | None = None) -> tuple:
-        """``(method, sign_fix, deflate_rtol, precision, storage_dtype,
-        sketch_oversample, sketch_power_iters)``: the first five key
-        ``core.engine.default_engine``, the sketch fields the planner's
-        schedule cache."""
-        return (self.resolve_method(problem_n, m=m, n=n, rank=rank), self.sign_fix,
-                self.deflate_rtol, self.precision, self.storage_dtype,
+        """``(method, fmm_p, sign_fix, deflate_rtol, precision, storage_dtype,
+        sketch_oversample, sketch_power_iters)``, the reference's tuple: the
+        first six key ``core.engine.default_engine``, the sketch fields the
+        planner's schedule cache."""
+        return (self.resolve_method(problem_n, m=m, n=n, rank=rank), self.fmm_p,
+                self.sign_fix, self.deflate_rtol, self.precision, self.storage_dtype,
                 self.sketch_oversample, self.sketch_power_iters)
 
     @property

@@ -46,9 +46,9 @@ def engine_from_key(policy: UpdatePolicy, problem_n: int, *, m: int | None = Non
                     n: int | None = None, rank: int | None = None) -> SvdEngine:
     """The one place a policy's ``engine_key`` unpacks into ``default_engine``
     (the trailing sketch fields key the planner's schedule cache, not the engine)."""
-    method, sign_fix, deflate_rtol, precision, storage_dtype, _, _ = policy.engine_key(
+    method, fmm_p, sign_fix, deflate_rtol, precision, storage_dtype, _, _ = policy.engine_key(
         problem_n, m=m, n=n, rank=rank)
-    return default_engine(method, sign_fix=sign_fix, deflate_rtol=deflate_rtol,
+    return default_engine(method, fmm_p=fmm_p, sign_fix=sign_fix, deflate_rtol=deflate_rtol,
                           precision=precision, storage_dtype=storage_dtype)
 
 

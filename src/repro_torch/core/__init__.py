@@ -1,7 +1,10 @@
 """Core numerics of the port, plain PyTorch over a leading batch dimension.
 
+  cheb         Chebyshev nodes and Lagrange operators
   secular      deflation, anchored secular solve, Loewner weights
   cauchy       stable Cauchy products
+  fmm          batched Chebyshev FMM for Cauchy sums (near field: kernel E)
+  fast         Gerasoulis FAST baseline (host numpy; a benchmark, not a route)
   eigh_update  diagonal-plus-rank-1 eigen-update (Algorithm 6.2)
   svd_update   rank-1 SVD update (Algorithm 6.1) and its truncated form
   engine       SvdEngine: batched entry points, precision, cache accounting
@@ -17,6 +20,7 @@ from repro_torch.core.eigh_update import (
     materialize_q,
 )
 from repro_torch.core.engine import EngineCacheInfo, SvdEngine, default_engine
+from repro_torch.core.fmm import FmmPlan, build_plan, fmm_apply, fmm_error_bound, fmm_matvec
 from repro_torch.core.secular import deflate, loewner_zhat, secular_solve
 from repro_torch.core.svd_update import SvdUpdateResult, TruncatedSvd
 
@@ -33,6 +37,11 @@ __all__ = [
     "EngineCacheInfo",
     "SvdEngine",
     "default_engine",
+    "FmmPlan",
+    "build_plan",
+    "fmm_apply",
+    "fmm_error_bound",
+    "fmm_matvec",
     "deflate",
     "loewner_zhat",
     "secular_solve",

@@ -1,12 +1,19 @@
 """Symmetric diagonal-plus-rank-1 eigen-update (paper Algorithm 6.2), plain PyTorch.
 
-Counterpart of ``repro.core.eigh_update`` for the ``direct`` and ``kernel``
-methods.  ``make_plan`` builds the eigenvector rotation Q of
-``diag(d) + rho z z^T`` as a structured operator (sort permutation, deflation
-rotations, compaction, scaled-Cauchy block, output order); ``apply_update``
-evaluates ``w @ Q``.  ``method="kernel"`` runs the Cauchy block through
-``kernels.ops.cauchy_matmul_stable`` (the hand-written CUDA kernel on a card).
-Every field and argument has a leading batch dimension.
+Counterpart of ``repro.core.eigh_update``.  ``make_plan`` builds the
+eigenvector rotation Q of ``diag(d) + rho z z^T`` as a structured operator
+(sort permutation, deflation rotations, compaction, scaled-Cauchy block,
+output order); ``apply_update`` evaluates ``w @ Q``.  The Cauchy block runs
+as a dense stable product (``method="direct"``), through
+``kernels.ops.cauchy_matmul_stable`` (``"kernel"``: kernel C on a card), or
+through the Chebyshev FMM of ``core.fmm`` (``"fmm"``, for problems of at
+least ``FMM_MIN_N`` poles; its near field is kernel E on a card).  Every
+field and argument has a leading batch dimension.
+
+A member whose FMM plan overflowed its static box capacity takes the dense
+stable product instead, as the reference's ``lax.cond`` does: ``make_plan``
+reads the overflow flags once per plan (one host read) and records the
+members in ``core.fmm.OVERFLOWED``.
 
 ``torch.argsort`` is not stable by default, while ``jnp.argsort`` is; the
 sorts here pass ``stable=True``, because the n - m structural zeros of the
@@ -20,6 +27,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import cauchy as _cauchy
+from repro_torch.core import fmm as _fmm
 from repro_torch.core.secular import (
     apply_givens_columns,
     deflate,
@@ -34,9 +42,14 @@ __all__ = [
     "apply_update",
     "materialize_q",
     "eigh_update",
+    "FMM_MIN_N",
 ]
 
-_METHODS = ("direct", "kernel")
+_METHODS = ("direct", "kernel", "fmm")
+
+# below this many poles the FMM tree is pointless and the plan takes the
+# direct route (the reference's _FMM_MIN_N)
+FMM_MIN_N = 96
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +72,11 @@ class EighUpdatePlan:
     colnorm: torch.Tensor    # scaled-Cauchy column norms (1 on padding)
     mu_full: torch.Tensor    # eigenvalues in compacted positions
     out_sort: torch.Tensor   # final ascending order
+    fmm: _fmm.FmmPlan | None
     n: int
     negated: bool            # the problem was negated to make rho positive
+    has_fmm: bool
+    fmm_overflow: tuple[int, ...]  # members whose FMM plan overflowed
 
 
 def _take(x, idx):
@@ -70,15 +86,13 @@ def _take(x, idx):
     return torch.gather(x, 2, idx[:, None, :].expand(x.shape[0], x.shape[1], idx.shape[1]))
 
 
-def make_plan(d, z, rho, *, rho_positive: bool, deflate_rtol: float | None = None,
-              build_fmm: bool = False) -> EighUpdatePlan:
+def make_plan(d, z, rho, *, rho_positive: bool, fmm_p: int = 20, build_fmm: bool = False,
+              deflate_rtol: float | None = None) -> EighUpdatePlan:
     """Structured eigen-update operator for ``diag(d) + rho z z^T``.
 
     ``rho_positive`` is the static sign of rho; for rho < 0 the problem is
-    negated (same eigenvectors, negated and reversed eigenvalues)."""
-    if build_fmm:
-        raise NotImplementedError(
-            "the FMM route is not ported yet (ROADMAP A3: core/cheb.py, core/fmm.py)")
+    negated (same eigenvectors, negated and reversed eigenvalues).
+    ``build_fmm`` adds an FMM plan of order ``fmm_p`` when ``n >= FMM_MIN_N``."""
     n = d.shape[1]
     negated = not rho_positive
     d_w = -d if negated else d
@@ -98,12 +112,23 @@ def make_plan(d, z, rho, *, rho_positive: bool, deflate_rtol: float | None = Non
         zhat, dc, roots.anchor, roots.tau, src_valid=roots.valid, tgt_valid=roots.valid)
     mu_full = torch.where(roots.valid, roots.mu, dc)
     out_sort = torch.argsort(mu_full, dim=1, stable=True)
+
+    fmm_plan, overflowed = None, ()
+    use_fmm = build_fmm and n >= FMM_MIN_N
+    if use_fmm:
+        fmm_plan = _fmm.build_plan(dc, mu_full, p=fmm_p, src_valid=roots.valid,
+                                   tgt_valid=roots.valid, tgt_anchor=roots.anchor,
+                                   tgt_tau=roots.tau)
+        overflowed = tuple(torch.nonzero(fmm_plan.overflow).flatten().tolist())
+        if overflowed:
+            _fmm.OVERFLOWED.append(overflowed)
     return EighUpdatePlan(
         sort_idx=sort_idx, givens_a=defl.givens_a, givens_b=defl.givens_b,
         givens_c=defl.givens_c, givens_s=defl.givens_s, any_rot=defl.any_rot,
         compact=defl.compact, dc=dc, zc=zc, rho=rho_w, zhat=zhat, mu=roots.mu,
         anchor=roots.anchor, tau=roots.tau, valid=roots.valid, colnorm=colnorm,
-        mu_full=mu_full, out_sort=out_sort, n=n, negated=negated,
+        mu_full=mu_full, out_sort=out_sort, fmm=fmm_plan, n=n, negated=negated,
+        has_fmm=use_fmm, fmm_overflow=overflowed,
     )
 
 
@@ -116,8 +141,22 @@ def eigenvalues(plan: EighUpdatePlan):
 
 
 def _cauchy_block(plan: EighUpdatePlan, wc, method: str):
+    """``out[b, :, i] = sum_j wc[b, :, j] zhat_j / (dc_j - mu_i)``, columns
+    divided by ``colnorm``."""
     wz = wc * plan.zhat[:, None, :]
-    if method == "kernel":
+    if method == "fmm" and plan.has_fmm:
+        # the FMM computes sum wz / (mu_i - dc_j): the Cauchy orientation
+        # flips the sign.  Members whose plan overflowed take the dense stable
+        # product (the reference's lax.cond, member by member).
+        out = -_fmm.fmm_apply(plan.fmm, wz)
+        if plan.fmm_overflow:
+            idx = torch.tensor(plan.fmm_overflow, device=wz.device)
+            pick = lambda x: x.index_select(0, idx)  # noqa: E731
+            dense = _cauchy.cauchy_matmul_stable(pick(wz), pick(plan.dc), pick(plan.anchor),
+                                                 pick(plan.tau), src_valid=pick(plan.valid),
+                                                 tgt_valid=pick(plan.valid))
+            out = out.index_copy(0, idx, dense)
+    elif method == "kernel":
         from repro_torch.kernels import ops as _kops
 
         out = _kops.cauchy_matmul_stable(wz, plan.dc, plan.anchor, plan.tau,
@@ -133,9 +172,6 @@ def apply_update(plan: EighUpdatePlan, w, *, method: str = "direct"):
     order: sort, deflation rotations, compaction, scaled-Cauchy product with
     deflated columns passing through, final order."""
     if method not in _METHODS:
-        if method == "fmm":
-            raise NotImplementedError(
-                "the FMM route is not ported yet (ROADMAP A3: core/cheb.py, core/fmm.py)")
         raise ValueError(f"unknown method {method!r}; one of {_METHODS}")
     ws = _take(w, plan.sort_idx)
     ws = apply_givens_columns(ws, plan.givens_a, plan.givens_b, plan.givens_c,
@@ -155,7 +191,8 @@ def materialize_q(plan: EighUpdatePlan, *, method: str = "direct", dtype=None):
     return apply_update(plan, eye.expand(plan.dc.shape[0], plan.n, plan.n), method=method)
 
 
-def eigh_update(u, d, z, rho, *, rho_positive: bool, method: str = "direct"):
+def eigh_update(u, d, z, rho, *, rho_positive: bool, method: str = "direct", fmm_p: int = 20):
     """``(mu, U_new)`` for ``U diag(d) U^T + rho (Uz)(Uz)^T = U_new diag(mu) U_new^T``."""
-    plan = make_plan(d, z, rho, rho_positive=rho_positive, build_fmm=(method == "fmm"))
+    plan = make_plan(d, z, rho, rho_positive=rho_positive, build_fmm=(method == "fmm"),
+                     fmm_p=fmm_p)
     return eigenvalues(plan), apply_update(plan, u, method=method)

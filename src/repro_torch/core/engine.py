@@ -91,20 +91,18 @@ def _no_mesh(mesh) -> None:
 
 
 class SvdEngine:
-    """Rank-1 SVD update engine for one (method, sign_fix, deflate_rtol,
+    """Rank-1 SVD update engine for one (method, fmm_p, sign_fix, deflate_rtol,
     precision, storage_dtype) configuration."""
 
-    def __init__(self, *, method: str = "direct", sign_fix: bool = True,
+    def __init__(self, *, method: str = "direct", fmm_p: int = 20, sign_fix: bool = True,
                  deflate_rtol: float | None = None, precision: str | None = None,
                  storage_dtype: torch.dtype | None = None):
-        if method == "fmm":
-            raise NotImplementedError(
-                "method 'fmm' (the Chebyshev FMM route) is not ported yet (ROADMAP A3)")
-        if method not in ("direct", "kernel", "fused"):
+        if method not in ("direct", "fmm", "kernel", "fused"):
             raise ValueError(f"unknown method {method!r}")
         if precision not in _PRECISION:
             raise ValueError(f"unknown precision {precision!r}; one of {tuple(_PRECISION)}")
         self.method = method
+        self.fmm_p = fmm_p
         self.sign_fix = sign_fix
         self.deflate_rtol = deflate_rtol
         self.precision = precision
@@ -148,13 +146,13 @@ class SvdEngine:
 
     def _full(self, u, s, v, a, b) -> SvdUpdateResult:
         with self._precision():
-            return _svd_update_impl(u, s, v, a, b, method=self.method, sign_fix=self.sign_fix,
-                                    deflate_rtol=self.deflate_rtol,
+            return _svd_update_impl(u, s, v, a, b, method=self.method, fmm_p=self.fmm_p,
+                                    sign_fix=self.sign_fix, deflate_rtol=self.deflate_rtol,
                                     compute_dtype=self.compute_dtype)
 
     def _trunc(self, t: TruncatedSvd, a, b) -> TruncatedSvd:
         with self._precision():
-            return _svd_update_truncated_impl(t, a, b, method=self.method,
+            return _svd_update_truncated_impl(t, a, b, method=self.method, fmm_p=self.fmm_p,
                                               deflate_rtol=self.deflate_rtol,
                                               compute_dtype=self.compute_dtype)
 
@@ -241,16 +239,17 @@ _default_engines: dict[tuple, SvdEngine] = {}
 _default_lock = threading.Lock()
 
 
-def default_engine(method: str = "direct", *, sign_fix: bool = True,
+def default_engine(method: str = "direct", *, fmm_p: int = 20, sign_fix: bool = True,
                    deflate_rtol: float | None = None, precision: str | None = None,
                    storage_dtype: torch.dtype | None = None) -> SvdEngine:
     """The process-wide engine for a configuration (shared cache accounting)."""
-    key = (method, sign_fix, deflate_rtol, precision, storage_dtype)
+    key = (method, fmm_p, sign_fix, deflate_rtol, precision, storage_dtype)
     with _default_lock:
         eng = _default_engines.get(key)
         if eng is None:
-            eng = SvdEngine(method=method, sign_fix=sign_fix, deflate_rtol=deflate_rtol,
-                            precision=precision, storage_dtype=storage_dtype)
+            eng = SvdEngine(method=method, fmm_p=fmm_p, sign_fix=sign_fix,
+                            deflate_rtol=deflate_rtol, precision=precision,
+                            storage_dtype=storage_dtype)
             _default_engines[key] = eng
         return eng
 

@@ -16,9 +16,11 @@ import torch
 
 __all__ = [
     "DeflationResult",
+    "SecularBrackets",
     "SecularRoots",
     "deflate",
     "apply_givens_columns",
+    "secular_brackets",
     "secular_solve",
     "loewner_zhat",
     "mu_minus_d",
@@ -132,22 +134,32 @@ def _eval_w_and_deriv(dc, zc2, rho, anchor_vals, tau, valid_src):
     return w, wp
 
 
-def secular_solve(dc, zc, rho, n_keep, *, n_bisect: int = 58,
-                  n_newton: int = 4) -> SecularRoots:
-    """Solve the compacted secular equation (rho > 0): retained poles first,
-    ascending over the first ``n_keep``."""
+class SecularBrackets(NamedTuple):
+    """The anchored bracket of every root of a compacted problem (all (B, n)):
+    root i lies at ``anchor_vals_i + tau`` with ``tau`` in ``[lo_i, hi_i]``;
+    ``zc2`` is ``zc^2``, zero at the padding."""
+
+    anchor: torch.Tensor
+    anchor_vals: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    valid: torch.Tensor
+    zc2: torch.Tensor
+
+
+def secular_brackets(dc, zc, rho, n_keep) -> SecularBrackets:
+    """Anchor each root at the nearer pole of its interval: the left one if
+    ``w`` is positive at the midpoint (and always for the last root), else
+    the right one."""
     bsz, n = dc.shape
-    tiny = torch.finfo(dc.dtype).tiny
     idx = torch.arange(n, device=dc.device)[None, :].expand(bsz, n)
     valid = idx < n_keep[:, None]
-    rho_ = rho[:, None]
-
     zc2 = torch.where(valid, zc * zc, 0.0)
     znorm2 = torch.sum(zc2, dim=1, keepdim=True)
 
     is_last = idx == (n_keep[:, None] - 1)
     d_right = torch.roll(dc, -1, dims=1)
-    right = torch.where(is_last, dc + rho_ * znorm2, d_right)
+    right = torch.where(is_last, dc + rho[:, None] * znorm2, d_right)
     left = dc
     width = right - left
 
@@ -157,6 +169,17 @@ def secular_solve(dc, zc, rho, n_keep, *, n_bisect: int = 58,
     anchor_vals = torch.where(use_left, left, right)
     lo = torch.where(use_left, 0.0, -0.5 * width)
     hi = torch.where(is_last, width, torch.where(use_left, 0.5 * width, 0.0))
+    return SecularBrackets(anchor_idx, anchor_vals, lo, hi, valid, zc2)
+
+
+def secular_solve(dc, zc, rho, n_keep, *, n_bisect: int = 58,
+                  n_newton: int = 4) -> SecularRoots:
+    """Solve the compacted secular equation (rho > 0): retained poles first,
+    ascending over the first ``n_keep``."""
+    n = dc.shape[1]
+    tiny = torch.finfo(dc.dtype).tiny
+    idx = torch.arange(n, device=dc.device)[None, :]
+    anchor_idx, anchor_vals, lo, hi, valid, zc2 = secular_brackets(dc, zc, rho, n_keep)
 
     for _ in range(n_bisect):
         tmid = 0.5 * (lo + hi)

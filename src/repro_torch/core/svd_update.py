@@ -5,7 +5,9 @@ Counterpart of ``repro.core.svd_update``.  Given ``A = U diag(s) V^T``
 through four diagonal-plus-rank-1 eigen-updates, then a structured sign fix.
 Every argument carries a leading batch dimension B; ``core.engine`` adds and
 removes it for single updates.  ``method="fused"`` hands the whole update to
-``kernels.ops`` (the fused CUDA kernels on a card).
+``kernels.ops`` (the fused CUDA kernels on a card); ``method="fmm"`` runs the
+eigen-updates' Cauchy products through the Chebyshev FMM (``core.fmm``) at
+order ``fmm_p``.
 """
 
 from __future__ import annotations
@@ -53,16 +55,18 @@ def _rank2_symmetric_split(beta):
     return rho_pos, rho_neg, (rho_pos / n_pos, 1.0 / n_pos), (rho_neg / n_neg, 1.0 / n_neg)
 
 
-def _double_update(q0, d0, w1, w2, rho_pos, rho_neg, *, method, want_g, deflate_rtol=None):
+def _double_update(q0, d0, w1, w2, rho_pos, rho_neg, *, method, fmm_p, want_g,
+                   deflate_rtol=None):
     """Two chained eigen-updates of ``Q0 diag(d0) Q0^T``: returns the final
     ascending eigenvalues, ``Q_final = Q0 @ G``, and G when ``want_g``."""
+    kw = dict(build_fmm=method == "fmm", fmm_p=fmm_p, deflate_rtol=deflate_rtol)
     z1 = _mtv(q0, w1)
-    plan1 = make_plan(d0, z1, rho_pos, rho_positive=True, deflate_rtol=deflate_rtol)
+    plan1 = make_plan(d0, z1, rho_pos, rho_positive=True, **kw)
     q1 = apply_update(plan1, q0, method=method)
     d1 = eigenvalues(plan1)
 
     z2 = _mtv(q1, w2)
-    plan2 = make_plan(d1, z2, rho_neg, rho_positive=False, deflate_rtol=deflate_rtol)
+    plan2 = make_plan(d1, z2, rho_neg, rho_positive=False, **kw)
     q2 = apply_update(plan2, q1, method=method)
     d2 = eigenvalues(plan2)
 
@@ -72,8 +76,9 @@ def _double_update(q0, d0, w1, w2, rho_pos, rho_neg, *, method, want_g, deflate_
     return d2, q2, g
 
 
-def _svd_update_impl(u, s, v, a, b, *, method: str = "direct", sign_fix: bool = True,
-                     deflate_rtol: float | None = None, compute_dtype=None) -> SvdUpdateResult:
+def _svd_update_impl(u, s, v, a, b, *, method: str = "direct", fmm_p: int = 20,
+                     sign_fix: bool = True, deflate_rtol: float | None = None,
+                     compute_dtype=None) -> SvdUpdateResult:
     """Algorithm 6.1 over a leading batch dimension.  ``compute_dtype``: 16-bit
     storage computes in float32 (inside the kernel on the fused route)."""
     m = u.shape[1]
@@ -93,7 +98,7 @@ def _svd_update_impl(u, s, v, a, b, *, method: str = "direct", sign_fix: bool = 
         res = _svd_update_impl(
             u.to(compute_dtype), s.to(compute_dtype), v.to(compute_dtype),
             a.to(compute_dtype), b.to(compute_dtype),
-            method=method, sign_fix=sign_fix, deflate_rtol=deflate_rtol,
+            method=method, fmm_p=fmm_p, sign_fix=sign_fix, deflate_rtol=deflate_rtol,
         )
         return SvdUpdateResult(*(x.to(store_dt) for x in res))
 
@@ -121,7 +126,7 @@ def _svd_update_impl(u, s, v, a, b, *, method: str = "direct", sign_fix: bool = 
     b2 = qnv[0][:, None] * b + qnv[1][:, None] * a_t
 
     # STEPS 4-7: chained eigen-updates
-    kw = dict(method=method, want_g=sign_fix, deflate_rtol=deflate_rtol)
+    kw = dict(method=method, fmm_p=fmm_p, want_g=sign_fix, deflate_rtol=deflate_rtol)
     d_left, u_n, g_u = _double_update(u, d_u, a1, b1, rho1, rho2, **kw)
     d_right, v_n, g_v = _double_update(v, d_v, a2, b2, rho3, rho4, **kw)
 
@@ -148,7 +153,7 @@ def _svd_update_impl(u, s, v, a, b, *, method: str = "direct", sign_fix: bool = 
     return SvdUpdateResult(u=u_n, s=s_n, v=v_n, d_left=d_left_s, d_right=d_right_s)
 
 
-def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct",
+def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct", fmm_p: int = 20,
                                deflate_rtol: float | None = None,
                                compute_dtype=None) -> TruncatedSvd:
     """Brand augmentation around Algorithm 6.1: u (B, m, r), s (B, r),
@@ -167,7 +172,7 @@ def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct",
         res = _svd_update_truncated_impl(
             TruncatedSvd(u.to(compute_dtype), s.to(compute_dtype), v.to(compute_dtype)),
             a.to(compute_dtype), b.to(compute_dtype),
-            method=method, deflate_rtol=deflate_rtol,
+            method=method, fmm_p=fmm_p, deflate_rtol=deflate_rtol,
         )
         return TruncatedSvd(*(x.to(store_dt) for x in res))
 
@@ -189,7 +194,7 @@ def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct",
     ak = torch.cat([p_vec, ra[:, None]], dim=1)
     bk = torch.cat([q_vec, rb[:, None]], dim=1)
     eye = torch.eye(r + 1, dtype=dt, device=u.device).expand(bsz, r + 1, r + 1)
-    res = _svd_update_impl(eye, s_aug, eye, ak, bk, method=method, sign_fix=True,
+    res = _svd_update_impl(eye, s_aug, eye, ak, bk, method=method, fmm_p=fmm_p, sign_fix=True,
                            deflate_rtol=deflate_rtol)
 
     u_aug = torch.cat([u, p_unit[:, :, None]], dim=2)

@@ -30,12 +30,12 @@ __all__ = ["LAUNCHES", "build_all", "check", "library", "ptrs", "reset_launches"
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("cauchy_matmul", "fused_update_f32", "fused_update_f64", "fused_update_bf16",
-           "fused_update_f16", "sparse_proj")
+           "fused_update_f16", "sparse_proj", "secular_newton", "nearfield")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 LAUNCHES = {"cauchy_matmul": 0, "fused_update": 0, "fused_update_truncated": 0,
-            "sparse_project": 0}
+            "sparse_project": 0, "secular_solve": 0, "nearfield": 0}
 
 _P, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
@@ -51,6 +51,12 @@ _SIGNATURES = {
     } for t in ("f32", "f64", "bf16", "f16")},
     "sparse_proj": {
         f"sparse_project_{t}": ([_P] * 6 + [_I] * 4 + [_LL] * 4 + [_P], _I) for t in ("f32", "f64")
+    },
+    "secular_newton": {
+        f"secular_solve_{t}": ([_P] * 7 + [_I] * 5 + [_P], _I) for t in ("f32", "f64")
+    },
+    "nearfield": {
+        f"nearfield_{t}": ([_P] * 6 + [_I] * 5 + [_P], _I) for t in ("f32", "f64")
     },
 }
 

@@ -15,9 +15,12 @@ from repro_torch.kernels.fused_update import (
     fused_update_batched,
     fused_update_truncated_batched,
 )
+from repro_torch.kernels.nearfield import nearfield as _nearfield
+from repro_torch.kernels.secular_newton import secular_solve as _secular_solve
 from repro_torch.kernels.sparse_proj import sparse_project
 
-__all__ = ["cauchy_matmul_stable", "fused_update", "fused_update_truncated", "sparse_project"]
+__all__ = ["cauchy_matmul_stable", "fused_update", "fused_update_truncated", "nearfield",
+           "secular_solve", "sparse_project"]
 
 
 def cauchy_matmul_stable(w, src, anchor, tau, *, src_valid=None, tgt_valid=None):
@@ -34,6 +37,20 @@ def cauchy_matmul_stable(w, src, anchor, tau, *, src_valid=None, tgt_valid=None)
     anchor_vals = torch.gather(src, 1, anchor)
     return cauchy_matmul(w_masked, src.contiguous(), anchor_vals.contiguous(),
                          tau.contiguous(), tgt_valid.contiguous())
+
+
+def secular_solve(dc, zc2, rho, anchor_vals, lo, hi, *, n_bisect=58, n_newton=4):
+    """``tau`` (B, M) with ``w(anchor_vals + tau) = 0`` on ``[lo, hi]``, poles
+    ``dc`` (B, N) with weights ``zc2`` (zero at invalid poles), ``rho`` (B,)."""
+    return _secular_solve(*(x.contiguous() for x in (dc, zc2, rho, anchor_vals, lo, hi)),
+                          n_bisect=n_bisect, n_newton=n_newton)
+
+
+def nearfield(w_near, x_near, av_b, tau_b, tgt_mask):
+    """The FMM near field: ``out[b, r, box, t] = sum_c w_near[b, r, box, c] /
+    ((av_b - x_near) + tau_b)`` over the box's 3cap neighbour sources, masked
+    by ``tgt_mask``; ``w_near`` zero at invalid source slots."""
+    return _nearfield(*(x.contiguous() for x in (w_near, x_near, av_b, tau_b, tgt_mask)))
 
 
 def fused_update(u, s, v, a, b, *, sign_fix=True, deflate_rtol=None, compute_dtype=None):

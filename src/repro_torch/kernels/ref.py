@@ -9,9 +9,10 @@ independent implementation of the same algorithm.
 from __future__ import annotations
 
 from repro_torch.kernels.cauchy_matmul import cauchy_matmul_plain
-from repro_torch.kernels.secular_body import secular_iterate
+from repro_torch.kernels.nearfield import nearfield_plain
+from repro_torch.kernels.secular_newton import secular_solve_plain
 
-__all__ = ["cauchy_matmul_ref", "secular_solve_ref", "svd_update_fused_ref"]
+__all__ = ["cauchy_matmul_ref", "secular_solve_ref", "nearfield_ref", "svd_update_fused_ref"]
 
 
 def cauchy_matmul_ref(w, src, anchor_vals, tau, tgt_mask):
@@ -20,10 +21,14 @@ def cauchy_matmul_ref(w, src, anchor_vals, tau, tgt_mask):
 
 
 def secular_solve_ref(dc, zc2, rho, anchor_vals, lo, hi, *, n_bisect=58, n_newton=4):
-    """Batched secular solve with roots on the last axis."""
-    diff = dc[:, :, None] - anchor_vals[:, None, :]
-    return secular_iterate(diff, zc2, rho, lo, hi, n_bisect=n_bisect,
-                           n_newton=n_newton, poles_axis=0)
+    """Oracle for the secular kernel: the batched solve with roots on the last axis."""
+    return secular_solve_plain(dc, zc2, rho, anchor_vals, lo, hi, n_bisect=n_bisect,
+                               n_newton=n_newton)
+
+
+def nearfield_ref(w_near, x_near, av_b, tau_b, tgt_mask):
+    """Oracle for the near-field kernel (batched: ``w_near`` (B, R, nb, 3cap))."""
+    return nearfield_plain(w_near, x_near, av_b, tau_b, tgt_mask)
 
 
 def svd_update_fused_ref(u, s, v, a, b, *, sign_fix=True, deflate_rtol=None):

@@ -136,6 +136,97 @@ def test_engine_counts_geometries_and_restores_precision():
     assert torch.get_float32_matmul_precision() == prev
 
 
+# -- the FMM route --------------------------------------------------------------
+
+
+def test_policy_fmm_p_and_engine_key_match_reference():
+    """The reference's doctest (``repro/api/policy.py``) on the port, and
+    ``engine_key`` against the reference's tuple field by field."""
+    pol = api.UpdatePolicy(method="fmm", fmm_p=12)
+    assert pol.replace(truncate_to=8).truncate_to == 8
+    assert hash(pol) == hash(api.UpdatePolicy(method="fmm", fmm_p=12))
+    assert pol == api.UpdatePolicy(method="fmm", fmm_p=12) != api.UpdatePolicy(method="fmm")
+    with pytest.raises(ValueError, match="unknown method 'svd'"):
+        api.UpdatePolicy(method="svd")
+    cases = [(dict(method="fmm", fmm_p=12), (256,), {}),
+             (dict(), (9,), {}),
+             (dict(deflate_rtol=1e-13, sign_fix=False), (512,), dict(m=512, n=512)),
+             (dict(fmm_p=16, storage_dtype="float32", sketch_oversample=3), (128,),
+              dict(m=2048, n=2048, rank=127)),
+             (dict(method="pallas", precision="high", sketch_power_iters=2), (64,), {})]
+    for kw, args, geo in cases:
+        rkw = dict(kw, storage_dtype=getattr(jnp, kw["storage_dtype"])) if "storage_dtype" in kw else kw
+        got = api.UpdatePolicy(**kw).engine_key(*args, **geo)
+        want = RAPI.UpdatePolicy(**rkw).engine_key(*args, **geo)
+        assert len(got) == len(want) == 8
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i == 5 and w is not None:                 # storage dtype: torch vs numpy
+                assert str(g).replace("torch.", "") == str(w), (kw, i)
+            else:
+                assert g == w, (kw, i, g, w)
+    eng = api.engine_for(api.UpdatePolicy(method="fmm", fmm_p=12),
+                         api.SvdState.from_dense(np.eye(4, 6), device="cpu"))
+    assert (eng.method, eng.fmm_p) == ("fmm", 12)
+    assert eng is not api.engine_for(api.UpdatePolicy(method="fmm"),
+                                     api.SvdState.from_dense(np.eye(4, 6), device="cpu"))
+
+
+FMM_CASES = [((512, 512, None), "fmm"), ((512, 512, None), "auto"), ((200, 300, None), "fmm"),
+             ((200, 300, None), "auto"), ((256, 384, 127), "fmm"), ((256, 384, 127), "auto"),
+             ((4, 500, None), "auto")]
+
+
+@pytest.mark.parametrize("geo,method", FMM_CASES,
+                         ids=[f"{m}x{n}{'' if r is None else f'r{r}'}-{meth}"
+                              for (m, n, r), meth in FMM_CASES])
+def test_fmm_route_matches_reference(geo, method):
+    """``method="fmm"`` (and ``auto``, which picks it above the fused gate,
+    as at (512, 512) and (4, 500)) against the reference, f64, by the
+    reconstruction (``v[:, :m]``) and the singular values, over sigma_max."""
+    m, n, rank = geo
+    rng = np.random.default_rng(m + n)
+    if rank is None:
+        u, s, v, a, b = svd_problem(rng, m, n)
+    else:
+        u, s, v, a, b = truncated_problem(rng, m, n, rank)
+    rs = RAPI.SvdState.from_factors(jnp.asarray(u), jnp.asarray(s), jnp.asarray(v))
+    ts = convert.state_from_arrays(u, s, v, device="cpu")
+    pol = dict(method=method)
+    want = RAPI.update(rs, jnp.asarray(a), jnp.asarray(b), RAPI.UpdatePolicy(**pol))
+    got = convert.state_to_arrays(api.update(ts, a, b, api.UpdatePolicy(**pol)))
+    k = got["s"].shape[0]
+    wu, ws, wv = (np.asarray(getattr(want, f)) for f in ("u", "s", "v"))
+    scale = ws[0]
+    rg = (got["u"] * got["s"]) @ got["v"][:, :k].T
+    rw = (wu * ws) @ wv[:, :k].T
+    assert np.abs(rg - rw).max() / scale <= ATOL
+    assert np.abs(got["s"] - ws).max() / scale <= ATOL
+    resolved = api.UpdatePolicy(**pol).resolve_method(n if rank is None else rank + 1, m=m, n=n,
+                                                      rank=rank)
+    assert resolved == RAPI.UpdatePolicy(**pol).resolve_method(
+        n if rank is None else rank + 1, m=m, n=n, rank=rank)
+    if method == "fmm" or (m, n) in ((512, 512), (4, 500)):
+        assert resolved == "fmm"
+
+
+def test_fmm_batched_update_equals_single_updates():
+    """``update_many`` stacks same-geometry states into one batched FMM plan
+    per eigen-update; each member equals its own single update."""
+    rng = np.random.default_rng(49)
+    probs = [svd_problem(rng, 120, 150) for _ in range(3)]
+    states = [convert.state_from_arrays(*p[:3], device="cpu") for p in probs]
+    pol = api.UpdatePolicy(method="fmm", fmm_p=16)
+    batched = api.update_many(states, [p[3] for p in probs], [p[4] for p in probs], pol)
+    for st, p, got in zip(states, probs, batched):
+        one = api.update(st, p[3], p[4], pol)
+        for f in ("u", "s", "v"):
+            torch.testing.assert_close(getattr(got, f)[..., :120] if f == "v" else getattr(got, f),
+                                       getattr(one, f)[..., :120] if f == "v" else getattr(one, f),
+                                       rtol=0, atol=1e-13)
+    # auto at (2048, 2048) rank 127 fails the fused gate (its 4k(m+n) term)
+    assert api.UpdatePolicy().resolve_method(128, m=2048, n=2048, rank=127) == "fmm"
+
+
 # -- hygiene ----------------------------------------------------------------------
 
 
@@ -173,11 +264,8 @@ def test_unported_routes_raise_by_name():
     rng = np.random.default_rng(47)
     u, s, v, a, b = svd_problem(rng, 4, 6)
     st = convert.state_from_arrays(u, s, v, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        api.update(st, a, b, api.UpdatePolicy(method="fmm"))
-    wide = api.SvdState.from_dense(rng.normal(size=(4, 500)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):   # auto -> fmm
-        api.update(wide, rng.normal(size=4), rng.normal(size=500))
+    with pytest.raises(NotImplementedError, match="benchmark baseline"):
+        api.update(st, a, b, api.UpdatePolicy(method="fast"))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         api.update(st, a, b, api.UpdatePolicy(mesh=object()))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):

@@ -13,8 +13,12 @@ import torch
 
 from _torch_helpers import cuda_device, np_, spectrum_problem, svd_problem, t  # noqa: F401
 from repro_torch import api, convert, updates
+from repro_torch.core import fmm as FMM
+from repro_torch.core import secular as SEC
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_update as F
+from repro_torch.kernels import nearfield as NF
+from repro_torch.kernels import secular_newton as SN
 from repro_torch.kernels import sparse_proj as SP
 from repro_torch.kernels.cauchy_matmul import cauchy_matmul_cuda, cauchy_matmul_plain
 
@@ -28,6 +32,12 @@ CAUCHY_TOL = {torch.float64: 1e-12, torch.float32: 2e-4}
 # the fused multiply-add rounds differently (relative to max |out|)
 SPARSE_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 FUSED_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-3, 1e-4)}
+# the secular solve: max |tau - tau'| over the widest bracket (each root's
+# terms summed in another order; the bisection can part where w rounds to
+# either sign, by about the rounding of w over its slope)
+SECULAR_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+# the near field, relative to max |out|: 3cap products summed in another order
+NEAR_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
 def _cauchy_inputs(rng, bsz, r, n, m):
@@ -215,3 +225,137 @@ def test_sparse_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="rows: expected CUDA"):
         SP.sparse_project(torch.as_tensor(rows), c, t(vals, torch.float64, cuda_device),
                           t(mat, torch.float64, cuda_device), 8)
+
+
+def _secular_random(rng, bsz, n, m):
+    """``tests/test_kernels.py``'s brackets: poles in [0, 5], weights in
+    [0.01, 1], rho 0.7, brackets [0, width], width in [0.01, 0.5]."""
+    return (np.sort(rng.uniform(0, 5, (bsz, n)), axis=1), rng.uniform(0.01, 1, (bsz, n)),
+            np.full(bsz, 0.7), np.sort(rng.uniform(0, 5, (bsz, m)), axis=1), np.zeros((bsz, m)),
+            rng.uniform(0.01, 0.5, (bsz, m)))
+
+
+def _secular_check(args, n_bisect=58, n_newton=4):
+    before = _build.LAUNCHES["secular_solve"]
+    got = SN.secular_solve_cuda(*args, n_bisect=n_bisect, n_newton=n_newton)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["secular_solve"] == before + 1
+    want = SN.secular_solve_plain(*args, n_bisect=n_bisect, n_newton=n_newton)
+    width = float((args[5] - args[4]).abs().max())
+    assert float((got - want).abs().max()) / width <= SECULAR_TOL[args[0].dtype]
+    assert torch.equal(got, SN.secular_solve_cuda(*args, n_bisect=n_bisect, n_newton=n_newton))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bsz,n,m", [(1, 50, 50), (3, 333, 150), (2, 37, 45), (2, 2500, 19)])
+def test_secular_kernel_matches_plain(cuda_device, dtype, bsz, n, m):
+    """Ragged root counts (not a multiple of the block's 8 warps) and, at
+    N = 2500, more poles than the block stages at once."""
+    rng = np.random.default_rng(n + m)
+    _secular_check([t(x, dtype, cuda_device) for x in _secular_random(rng, bsz, n, m)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_secular_kernel_on_real_brackets(cuda_device, dtype):
+    """Brackets as ``core.secular`` builds them from a real (d, z, rho), with
+    roots hugging their poles, at the default and the fused route's step
+    counts; a root with the bracket [0, 0] comes out 0."""
+    rng = np.random.default_rng(61)
+    n = 300
+    d = np.sort(rng.uniform(1, 9, (2, n)) ** 2, axis=1)
+    z = rng.normal(size=(2, n))
+    z[:, ::9] *= 1e-4
+    br = SEC.secular_brackets(t(d, dtype, cuda_device), t(z, dtype, cuda_device),
+                              t([0.9, 1.7], dtype, cuda_device),
+                              torch.tensor([n, n], device=cuda_device))
+    lo, hi = br.lo.clone(), br.hi.clone()
+    lo[1, 5] = hi[1, 5] = 0.0
+    args = [t(d, dtype, cuda_device), br.zc2, t([0.9, 1.7], dtype, cuda_device),
+            br.anchor_vals, lo, hi]
+    for steps in ((58, 4), (16, 6)):
+        got = _secular_check(args, *steps)
+        assert float(got[1, 5]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 5, 4, 12, 6), (2, 37, 3, 45, 29), (3, 70, 5, 100, 33)])
+def test_nearfield_kernel_matches_plain(cuda_device, dtype, shape):
+    """Ragged rows, sources and targets (not multiples of the 32 x 32 tile),
+    zeroed source slots, masked targets and one exact zero denominator."""
+    bsz, r, nb, c3, capt = shape
+    rng = np.random.default_rng(r * c3)
+    w = rng.normal(size=(bsz, r, nb, c3))
+    w[:, :, :, -3:] = 0.0
+    x = rng.uniform(0, 1, (bsz, nb, c3))
+    av = rng.uniform(0, 1, (bsz, nb, capt))
+    tau = rng.normal(size=(bsz, nb, capt)) * 1e-4
+    x[0, 0, 1], tau[0, 0, 0] = av[0, 0, 0], 0.0
+    args = [t(v, dtype, cuda_device) for v in (w, x, av, tau)]
+    args.append(torch.as_tensor(rng.uniform(size=(bsz, nb, capt)) > 0.2, device=cuda_device))
+    before = _build.LAUNCHES["nearfield"]
+    got = NF.nearfield_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["nearfield"] == before + 1
+    want = NF.nearfield_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max() / want.abs().max()) <= NEAR_TOL[dtype]
+    assert torch.equal(got, NF.nearfield_cuda(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nearfield_kernel_on_an_fmm_plan(cuda_device, dtype):
+    """The operands an anchored FMM plan gives the kernel (padded box slots,
+    near-pole targets)."""
+    rng = np.random.default_rng(62)
+    n = 300
+    src = np.sort(rng.uniform(0, 1, (2, n)), axis=1)
+    anchor = rng.integers(0, n, (2, n))
+    tau = rng.normal(size=(2, n)) * 1e-7
+    plan = FMM.build_plan(t(src, dtype, cuda_device),
+                          t(np.take_along_axis(src, anchor, 1) + tau, dtype, cuda_device), p=16,
+                          tgt_anchor=torch.as_tensor(anchor, device=cuda_device),
+                          tgt_tau=t(tau, dtype, cuda_device))
+    ops_ = FMM.near_operands(plan, t(rng.normal(size=(2, 7, n)), dtype, cuda_device))
+    got, want = NF.nearfield_cuda(*ops_), NF.nearfield_plain(*ops_)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= NEAR_TOL[dtype]
+
+
+def test_secular_and_nearfield_kernels_refuse_what_they_do_not_take(cuda_device):
+    rng = np.random.default_rng(63)
+    sec = _secular_random(rng, 1, 8, 5)
+    with pytest.raises(ValueError, match="expected a contiguous CUDA"):
+        SN.secular_solve_cuda(*(t(x) for x in sec))
+    with pytest.raises(NotImplementedError, match="f32 or f64"):
+        SN.secular_solve_cuda(*(t(x, torch.bfloat16, cuda_device) for x in sec))
+    near = [rng.normal(size=(1, 2, 3, 6)), rng.uniform(size=(1, 3, 6)), rng.uniform(size=(1, 3, 4)),
+            np.zeros((1, 3, 4)), np.ones((1, 3, 4), bool)]
+    with pytest.raises(ValueError, match="expected a contiguous CUDA"):
+        NF.nearfield_cuda(*(t(x) for x in near[:4]), torch.as_tensor(near[4]))
+    with pytest.raises(ValueError, match="expected shape"):
+        NF.nearfield_cuda(*(t(x, torch.float64, cuda_device) for x in near[:3]),
+                          t(np.zeros((1, 3, 5)), torch.float64, cuda_device),
+                          torch.as_tensor(near[4], device=cuda_device))
+
+
+def test_fmm_update_on_card_goes_through_kernel_e(cuda_device):
+    """``method="fmm"`` on the card: 8 launches of kernel E per call (four
+    applies a side, both sides above the FMM floor), none of D, and the
+    result of the CPU route."""
+    rng = np.random.default_rng(64)
+    probs = [svd_problem(rng, 128, 160) for _ in range(2)]
+    states = [convert.state_from_arrays(*p[:3], device=cuda_device) for p in probs]
+    cpu_states = [convert.state_from_arrays(*p[:3], device="cpu") for p in probs]
+    A, B = [p[3] for p in probs], [p[4] for p in probs]
+    pol = api.UpdatePolicy(method="fmm")
+    before = dict(_build.LAUNCHES)
+    got = api.update_many(states, A, B, pol)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["nearfield"] == before["nearfield"] + 8
+    assert _build.LAUNCHES["secular_solve"] == before["secular_solve"]
+    want = api.update_many(cpu_states, A, B, pol)
+    for g, w in zip(got, want):
+        scale = float(w.s[0])
+        assert float((g.s.cpu() - w.s).abs().max()) / scale <= 1e-10
+        assert float((_recon(g.u, g.s, g.v).cpu() - _recon(w.u, w.s, w.v)).abs().max()) / scale <= 1e-10

@@ -3,7 +3,7 @@ against a float64 truth: the numbers behind the f32 and bf16 tolerances of
 ``chip_smoke.py``.
 
     PYTHONPATH=src:tests python tools/port_vs_reference.py [--problems 128] [--seed 0]
-        [--part survey|drives|all]
+        [--part survey|drives|fmm|all]
 
 ``--part drives`` runs ``chip_smoke.py``'s structured-update drives
 (``drive_inputs``: the same numpy inputs) on the CPU through the port and
@@ -16,7 +16,17 @@ apart (``_drive1_split``: the sketch alone, the rank-1 steps fed the exact
 SVD of the delta, the step and deflation where the error enters, and one
 rounding of the inputs).
 
-Two cases, printed as one JSON object:
+``--part fmm`` runs ``chip_smoke.py``'s FMM drives (``fmm_inputs``) (i),
+(ii), (iii) and (v) on the CPU through the port and through the reference,
+each with the policy the drive uses (the default, whose ``auto`` picks
+``fmm`` at these geometries, or ``method="fmm"`` for the quickstart), one
+member at a time: each side's distance to the dense truth
+(max |U S V[:, :m]^T - (A + a b^T)| / sigma_max, the largest over the
+members; the numbers behind chip_smoke's ``FMM_TRUTH_LIMIT``), port
+against reference and FMM against ``direct`` (the scale-free measures), and
+the members whose FMM plan overflowed (the port's record).
+
+The survey's two cases, printed as one JSON object:
 
 * ``bf16``: full updates at (32, 48) stored in bf16 and computed in float32
   by both sides, over ``--problems`` problems of each kind of data, against
@@ -381,11 +391,89 @@ def drives() -> dict:
     return res
 
 
+def fmm() -> dict:
+    """chip_smoke.py's FMM drives (i), (ii), (iii), (v) on the CPU: port and
+    reference against the dense truth, against each other and against their
+    own ``direct`` route, member by member."""
+    from chip_smoke import fmm_inputs
+    from repro_torch import api
+    from repro_torch.core import fmm as tfmm
+
+    rapi = ref("api")
+    inputs = fmm_inputs()
+    drives_ = {
+        "i (1024,1024) uniform auto": ([inputs["i"]], {}),
+        "ii (1024,1024) uniform auto, 8 members": (inputs["ii"], {}),
+        "iii quickstart (200,300) fmm": ([inputs["iii"]], {"method": "fmm"}),
+        "v (1024,1024) spread squares auto, 8 members": (inputs["v"], {}),
+    }
+    res = {}
+    for name, (members, kw) in drives_.items():
+        worst = {"port_vs_truth": 0.0, "reference_vs_truth": 0.0,
+                 "port_vs_reference": {"recon": 0.0, "sigma": 0.0},
+                 "port_fmm_vs_direct": {"recon": 0.0, "sigma": 0.0},
+                 "reference_fmm_vs_direct": {"recon": 0.0, "sigma": 0.0}}
+        overflowed = []
+        for i, mem in enumerate(members):
+            if len(mem) == 3:
+                a_mat, a, b = mem
+                tst = api.SvdState.from_dense(a_mat, device="cpu")
+                rst = rapi.SvdState.from_dense(jnp.asarray(a_mat))
+            else:
+                u, sv, v, a, b = mem
+                a_mat = (u * sv) @ v.T
+                tst = api.SvdState.from_factors(u, sv, v, device="cpu")
+                rst = rapi.SvdState.from_factors(*map(jnp.asarray, (u, sv, v)))
+            m = a_mat.shape[0]
+            truth = (a_mat + np.outer(a, b))[None]
+            tfmm.OVERFLOWED.clear()
+            got = _arrays([api.update(tst, a, b, api.UpdatePolicy(**kw))], False)
+            overflowed += [(i, plan) for plan in tfmm.OVERFLOWED]
+            want = _arrays([rapi.update(rst, jnp.asarray(a), jnp.asarray(b),
+                                        rapi.UpdatePolicy(**kw))], False)
+            cut = lambda x: [x[0], x[1], x[2][..., :m]]  # noqa: E731
+            pairs = {"port_vs_reference": (got, want)}
+            if i == 0:
+                pairs["port_fmm_vs_direct"] = (got, _arrays(
+                    [api.update(tst, a, b, api.UpdatePolicy(method="direct"))], False))
+                pairs["reference_fmm_vs_direct"] = (want, _arrays(
+                    [rapi.update(rst, jnp.asarray(a), jnp.asarray(b),
+                                 rapi.UpdatePolicy(method="direct"))], False))
+            for key, (x, y) in pairs.items():
+                e = _scale_free(cut(x), cut(y))
+                worst[key] = {k: max(worst[key][k], e[k]) for k in e}
+            worst["port_vs_truth"] = max(worst["port_vs_truth"], _truth_err(got, truth, m))
+            worst["reference_vs_truth"] = max(worst["reference_vs_truth"],
+                                              _truth_err(want, truth, m))
+        res[name] = {**worst, "port_overflowed (member, plan members)": overflowed}
+
+    # drive (v)'s own sensitivity (the port on the CPU): one rounding of the
+    # factors, and the deflation tolerance halved and doubled
+    factors = [x[:3] for x in inputs["v"]]
+    pairs_v = [x[3:] for x in inputs["v"]]
+
+    def run_v(fs, **kw):
+        sts = [api.SvdState.from_factors(*f, device="cpu") for f in fs]
+        return [_arrays(api.update_many(sts, [p[0] for p in pairs_v], [p[1] for p in pairs_v],
+                                        api.UpdatePolicy(**kw)), False)]
+
+    v_res = res["v (1024,1024) spread squares auto, 8 members"]
+    v_res["port_one_rounding"] = _one_rounding(run_v, factors, torch.float64, trials=2)[0]
+    base = run_v(factors)[0]
+    eps = float(np.finfo(np.float64).eps)
+    for f in (0.5, 2.0):
+        got = run_v(factors, deflate_rtol=f * 64 * eps)[0]
+        v_res[f"port_deflate_rtol_x{f}_per_member_recon"] = [
+            _scale_free([x[i:i + 1] for x in got], [x[i:i + 1] for x in base])["recon"]
+            for i in range(len(factors))]
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--problems", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--part", choices=("survey", "drives", "all"), default="all")
+    ap.add_argument("--part", choices=("survey", "drives", "fmm", "all"), default="all")
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(4)
@@ -395,6 +483,8 @@ def main() -> None:
         out["survey"] = survey(args.problems, args.seed)
     if args.part in ("drives", "all"):
         out["drives"] = drives()
+    if args.part in ("fmm", "all"):
+        out["fmm"] = fmm()
     print(json.dumps(out, indent=1))
 
 
