@@ -32,11 +32,16 @@ result) when it fails:
 4. times: median of CUDA-event timings after warm-up, for each kernel, its
    plain version and a PyTorch call that computes the same function (one
    batched ``torch.linalg.svd`` of the updated matrices for A and B,
-   ``torch.sparse.mm`` on a CSR matrix for F; yardsticks the port never
+   ``torch.sparse.mm`` on a CSR matrix for F, built outside the timing and,
+   like for like with F's own bucketing, inside it; yardsticks the port never
    calls; none computes D's or E's function, and E is shown beside the
    einsum on a prebuilt ``near_inv`` as a reference point), beside a bound
-   from bytes and operations; each drive end to end; and the FMM route
-   against ``method="pallas"`` (kernel C) and ``direct`` at (1024, 1024).
+   from bytes and operations; for E and F also the device time from
+   ``torch.profiler`` (CUDA activity), for F the host time to enqueue a call
+   and the walk on the plain bucketing (a PyTorch stable sort and
+   ``searchsorted``, the bucketing kernel F used to take); each
+   drive end to end; and the FMM route against ``method="pallas"`` (kernel C)
+   and ``direct`` at (1024, 1024).
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -58,8 +63,9 @@ SRC = ROOT / "src"
 
 # H100 SXM peaks from NVIDIA's data sheet: HBM3 bandwidth; f32 outside the
 # tensor cores (TF32 would not hold the f32 results), and f64 on the DMMA
-# tensor cores, which compute at full f64 precision.  The kernels use neither
-# tensor-core path yet, so the bound is the least time the card could take.
+# tensor cores, which compute at full f64 precision (kernel E contracts on
+# them in f64; the other kernels use the CUDA cores), so the bound is the least
+# time the card could take.
 MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 67e12}
 N_BISECT, N_NEWTON = 16, 6
@@ -598,6 +604,10 @@ def main() -> int:
             err = check(full_label, sparse_err(got, want), SPARSE_TOL[dn])
             require(torch.equal(got, SP.sparse_project_cuda(*args, out_rows)),
                     f"{full_label}: two launches differ")
+            coords = args[0] if args[0].dim() == 2 else args[0][None]
+            require(all(torch.equal(d_, p_) for d_, p_ in zip(
+                SP.sparse_bucket_cuda(coords, out_rows), SP.sparse_project_prep(coords, out_rows))),
+                f"{full_label}: the device bucketing differs from sparse_project_prep")
             if empty_from is not None:
                 require(float(got[..., empty_from:, :].abs().max()) == 0.0,
                         f"{full_label}: an empty row is not zero")
@@ -1020,13 +1030,14 @@ def main() -> int:
         f"into the run:")
 
     def time_ms(fn, budget_ms=1500.0):
-        fn()
+        # one untimed call warms up and sizes the count: at least 3 timed calls
+        # where a call takes under half a second, 2 for the second-long routes
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         once = (time.perf_counter() - t) * 1e3
-        reps = int(min(30, max(3, budget_ms / max(once, 1e-3))))
+        reps = int(min(30, max(3 if once < 500 else 2, budget_ms / max(once, 1e-3))))
         times = []
         for _ in range(reps):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -1037,6 +1048,35 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(e0.elapsed_time(e1))
         return statistics.median(times)
+
+    def device_ms(fn, n=20):
+        """Device time per call from torch.profiler (CUDA activity): the sum
+        over the kernels the call launches, and each kernel's share."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            if ev.device_time_total > 0:
+                name = ev.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+                name = name.split("(")[0].split("<")[0].strip()[:40]
+                split[name] = split.get(name, 0.0) + ev.device_time_total / n / 1e3
+        require(split, "torch.profiler saw no device time")
+        return sum(split.values()), split
+
+    def host_ms(fn, n=50):
+        """Host time to enqueue one call (no synchronisation inside the loop)."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out = (time.perf_counter() - t) / n * 1e3
+        torch.cuda.synchronize()
+        return out
 
     def phase_ops(k):
         # secular: k roots x k poles per sweep, 5 operations per pair in a
@@ -1106,7 +1146,6 @@ def main() -> int:
     f_rows = []
     for (label, dn), (args, out_rows, err) in sparse_cases.items():
         op = SP.cuda_operands(*args)
-        perm, rowptr = SP.sparse_project_prep(op.rows, out_rows)
         bsz, nnz = op.batch, op.vals.shape[-1]
         src, kk = op.mat.shape[-2:]
         isz = op.mat.element_size()
@@ -1116,30 +1155,50 @@ def main() -> int:
         touched *= bsz if op.cols.shape[0] == 1 else 1
         nbytes = 8 * op.rows.numel() + isz * (bsz * nnz + touched * kk + bsz * out_rows * kk)
         ops = 2 * bsz * nnz * kk
-        # the yardstick: one torch.sparse.mm of a block-diagonal CSR matrix
-        # (built here, outside the timed region) with the stacked blocks
+        # the yardstick: one torch.sparse.mm of a block-diagonal CSR matrix with
+        # the stacked blocks, the CSR matrix built outside the timed region
+        # ("library_ms") and inside it, from the COO entries as F takes them
+        # ("library_with_csr_build_ms": coalesce and conversion, like for like
+        # with F's own bucketing)
         shift = torch.arange(bsz, device=dev)[:, None]
         idx = torch.stack([(op.rows.expand(bsz, nnz).long() + shift * out_rows).reshape(-1),
                            (op.cols.expand(bsz, nnz).long() + shift * src).reshape(-1)])
-        with warnings.catch_warnings():  # sparse CSR support is marked beta
-            warnings.simplefilter("ignore", UserWarning)
-            csr = torch.sparse_coo_tensor(idx, op.vals.expand(bsz, nnz).reshape(-1),
-                                          (bsz * out_rows, bsz * src)).coalesce().to_sparse_csr()
+        coo_vals = op.vals.expand(bsz, nnz).reshape(-1)
+
+        def csr_of(i_=idx, v_=coo_vals, shape_=(bsz * out_rows, bsz * src)):
+            with warnings.catch_warnings():  # sparse CSR support is marked beta
+                warnings.simplefilter("ignore", UserWarning)
+                return torch.sparse_coo_tensor(i_, v_, shape_).coalesce().to_sparse_csr()
+
+        csr = csr_of()
         dense_mat = op.mat.expand(bsz, src, kk).reshape(bsz * src, kk).contiguous()
         lib_err = sparse_err(torch.sparse.mm(csr, dense_mat).reshape(bsz, out_rows, kk),
                              SP.sparse_project_plain(*args, out_rows).reshape(bsz, out_rows, kk))
         require(lib_err <= SPARSE_TOL[dn], f"torch.sparse.mm computes another function ({lib_err})")
         b_ms, b_by = bound(nbytes, ops, dn)
-        row = {"kernel": "F", "dtype": dn, "shape": label,
-               "ms": time_ms(lambda: SP.sparse_project_launch(perm, rowptr, op, out_rows)),
-               "ms_with_prep": time_ms(lambda: SP.sparse_project_cuda(*args, out_rows)),
+
+        def prep_walk(op_=op, out_rows_=out_rows):
+            """The bucketing F used to take, in PyTorch (a stable sort and
+            searchsorted), then the walk."""
+            perm, rowptr = SP.sparse_project_prep(op_.rows, out_rows_)
+            return SP.sparse_project_launch(perm, rowptr, op_, out_rows_)
+
+        f_call = lambda a=args, o=out_rows: SP.sparse_project_cuda(*a, o)  # noqa: E731
+        dev_ms, dev_split = device_ms(f_call)
+        row = {"kernel": "F", "dtype": dn, "shape": label, "ms": time_ms(f_call),
+               "device_ms": dev_ms, "device_split_ms": dev_split, "host_ms": host_ms(f_call),
+               "prep_walk_ms": time_ms(prep_walk),
                "plain_ms": time_ms(lambda: SP.sparse_project_plain(*args, out_rows)),
                "library_ms": time_ms(lambda: torch.sparse.mm(csr, dense_mat)),
+               "library_with_csr_build_ms": time_ms(lambda: torch.sparse.mm(csr_of(), dense_mat)),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
                "max_abs_err": err}
         f_rows.append(row)
-        log(f"  F {dn} {label}: kernel {row['ms']:.4f} ms | with prep {row['ms_with_prep']:.4f} ms "
-            f"| plain {row['plain_ms']:.4f} ms | torch.sparse.mm {row['library_ms']:.4f} ms "
+        log(f"  F {dn} {label}: kernel with bucketing {row['ms']:.4f} ms (device {dev_ms:.4f}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in dev_split.items())
+            + f"; host {row['host_ms']:.4f}) | PyTorch sort + searchsorted, then the walk "
+            f"{row['prep_walk_ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | torch.sparse.mm "
+            f"{row['library_ms']:.4f} ms, with the CSR build {row['library_with_csr_build_ms']:.4f} ms "
             f"| bound {b_ms:.5f} ms ({b_by})")
     # kernel D: every step of every root reads all N poles; 5 operations a
     # pole term in a bisection step (2 subtractions, a division, a
@@ -1179,15 +1238,17 @@ def main() -> int:
         near_inv = torch.where(denom != 0.0, 1.0 / torch.where(denom == 0.0, 1.0, denom),
                                0.0) * tm.to(w_near.dtype)[:, :, None, :]
         b_ms, b_by = bound(nbytes, ops, dn)
+        e_dev, _ = device_ms(lambda a=args: NF.nearfield_cuda(*a), n=5)
         row = {"kernel": "E", "dtype": dn, "shape": f"{which} {shape}",
-               "ms": time_ms(lambda a=args: NF.nearfield_cuda(*a)),
+               "ms": time_ms(lambda a=args: NF.nearfield_cuda(*a)), "device_ms": e_dev,
                "plain_ms": time_ms(lambda a=args: NF.nearfield_plain(*a)), "library_ms": None,
                "einsum_near_inv_ms": time_ms(
                    lambda w_=w_near, c_=near_inv: torch.einsum("zrbc,zbct->zrbt", w_, c_)),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops, "max_abs_err": err}
         e_rows.append(row)
         del near_inv, denom
-        log(f"  E {dn} {row['shape']}: kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.3f} ms "
+        log(f"  E {dn} {row['shape']}: kernel {row['ms']:.4f} ms (device {e_dev:.4f}, "
+            f"{ops / row['ms'] / 1e9:.1f} TFLOP/s) | plain {row['plain_ms']:.3f} ms "
             f"| einsum on a prebuilt near_inv (reference point) {row['einsum_near_inv_ms']:.4f} ms "
             f"| bound {b_ms:.5f} ms ({b_by})")
     # the FMM route against kernel C (method="pallas") and the phase chain
@@ -1239,16 +1300,19 @@ def main() -> int:
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": f"{row['dtype']} {row['shape']}"})
-    # kernel F at the sketch's shape, as drive 2 gives it; launches over the drives
+    # kernel F (with its bucketing) at the sketch's shape, as drive 2 gives it;
+    # launches over the drives
     row = next(rw for rw in f_rows if (rw["dtype"], rw["shape"]) == ("float64", "1024x1024 nnz10485 l16"))
     kernels.append({"name": "sparse_project", "route": "cuda",
                     "source": "src/repro_torch/csrc/sparse_proj.cu",
                     "replaces": "src/repro/kernels/sparse_proj.py:179",
                     "launches": sum(d["sparse_project"] for d in drive_launches.values()),
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                    "ms_with_prep": row["ms_with_prep"], "plain_ms": row["plain_ms"],
-                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"], "shape": f"float64 {row['shape']}"})
+                    "device_ms": row["device_ms"], "prep_walk_ms": row["prep_walk_ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    "library_with_csr_build_ms": row["library_with_csr_build_ms"],
+                    "shape": f"float64 {row['shape']}"})
     # kernels D and E at their headline shapes (f64: B8 real brackets; the
     # full plan at B8); launches over the main path and every drive
     for name, source, replaces, counter, row in (
@@ -1264,8 +1328,8 @@ def main() -> int:
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": None,
-                        **({"einsum_near_inv_ms": row["einsum_near_inv_ms"]}
-                           if "einsum_near_inv_ms" in row else {}),
+                        **({"einsum_near_inv_ms": row["einsum_near_inv_ms"],
+                            "device_ms": row["device_ms"]} if "einsum_near_inv_ms" in row else {}),
                         "shape": f"float64 {row['shape']}"})
     log(f"run: {time.perf_counter() - t_run:.0f} s")
     print(json.dumps({"kernels": kernels}))

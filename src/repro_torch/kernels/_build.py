@@ -50,7 +50,9 @@ _SIGNATURES = {
         "fused_trunc_scratch_elems": ([_I, _I, _I], _LL),
     } for t in ("f32", "f64", "bf16", "f16")},
     "sparse_proj": {
-        f"sparse_project_{t}": ([_P] * 6 + [_I] * 4 + [_LL] * 4 + [_P], _I) for t in ("f32", "f64")
+        **{f"sparse_{kind}_{t}": ([_P] * 6 + [_I] * 6 + [_P], _I)
+           for kind in ("project", "walk") for t in ("f32", "f64")},
+        "sparse_scratch_ints": ([_I] * 4, _LL),
     },
     "secular_newton": {
         f"secular_solve_{t}": ([_P] * 7 + [_I] * 5 + [_P], _I) for t in ("f32", "f64")
@@ -137,10 +139,13 @@ def ptrs(*tensors):
     return [ctypes.c_void_p(t.data_ptr()) for t in tensors]
 
 
-def stream():
+def stream() -> int:
+    """The handle of the current device's current CUDA stream, read without
+    building a ``torch.cuda.Stream`` (which costs microseconds of host time a
+    call)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check(err: int, what: str) -> None:

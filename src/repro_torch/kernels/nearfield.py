@@ -13,9 +13,11 @@ at invalid source slots; ``x_near`` is (B, nb, 3cap), ``av_b`` / ``tau_b`` /
 
 ``nearfield_plain`` is the plain PyTorch version (it builds the (3cap, capt)
 blocks in memory); ``nearfield_cuda`` launches kernel E
-(``csrc/nearfield.cu``), which builds each block tile in shared memory, so
-the blocks never reach device memory.  ``nearfield`` picks by the device of
-``w_near``: CPU takes the plain version, CUDA the kernel.
+(``csrc/nearfield.cu``), which builds each box's block once, a panel of 48
+targets at a time in shared memory, and streams all R rows through it (f64 on
+the DMMA tensor cores), so the blocks never reach device memory.
+``nearfield`` picks by the device of ``w_near``: CPU takes the plain version,
+CUDA the kernel.
 """
 
 from __future__ import annotations

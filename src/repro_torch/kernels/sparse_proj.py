@@ -16,16 +16,22 @@ explicit batch.
 
 ``sparse_project_plain`` is the plain PyTorch version, a segment sum with
 ``index_add_`` in entry order (the counterpart of ``sparse_project_xla``).
-``sparse_project_cuda`` sorts the entries stably by destination row
-(``sparse_project_prep``) and launches kernel F (``csrc/sparse_proj.cu``), one
-group of lanes per destination row, no atomics.  ``sparse_project`` picks by
-device: CPU tensors take the plain version, CUDA tensors the kernel, which
-raises on what it does not take.  Coordinates are int32; their range is not
-checked on the hot path (``check_coords`` does it, on the host, for tests).
+``sparse_project_cuda`` launches kernel F (``csrc/sparse_proj.cu``) in one
+call: the bucketing of the entries by destination row, in entry order, on the
+card, then one group of lanes per destination row, no atomics on values.
+``sparse_project_prep`` is the plain PyTorch version of that bucketing (a
+stable sort and ``searchsorted``); ``sparse_bucket_cuda`` and
+``sparse_project_launch`` run the kernel's two halves apart, for tests and
+timings.  ``sparse_project`` picks by device: CPU tensors take the plain
+version, CUDA tensors the kernel, which raises on what it does not take.
+Coordinates are int32; their range is not checked on the hot path (the
+kernel drops an entry out of range; ``check_coords`` raises on one, on the
+host, for tests).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -37,6 +43,7 @@ from repro_torch.kernels import _build
 __all__ = [
     "check_coords",
     "cuda_operands",
+    "sparse_bucket_cuda",
     "sparse_project",
     "sparse_project_cuda",
     "sparse_project_launch",
@@ -45,6 +52,7 @@ __all__ = [
 ]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_COORDS = (torch.int32, torch.int64)
 _MAX_GRID_Y = 65535
 
 
@@ -60,32 +68,49 @@ class _Operands(NamedTuple):
     mat: torch.Tensor   # (1 or B, src, k)
 
 
+def _broadcast(a: tuple, b: tuple) -> tuple:
+    if a == b or not b:
+        return a
+    if not a:
+        return b
+    return tuple(torch.broadcast_shapes(a, b))
+
+
+def _flat(x, lead: tuple, batch: int, tail: int):
+    """``x`` with one flat batch dimension: (1, …) when the whole batch
+    shares it, else (batch, …); a view unless a partial broadcast forces a
+    copy."""
+    head = x.shape[:x.dim() - tail]
+    if len(head) == 1 and head[0] in (1, batch):
+        return x
+    if math.prod(head) == 1:
+        return x.reshape((1,) + tuple(x.shape[x.dim() - tail:]))
+    return x.expand(tuple(lead) + tuple(x.shape[x.dim() - tail:])).reshape(
+        (batch,) + tuple(x.shape[x.dim() - tail:]))
+
+
 def _operands(rows, cols, vals, mat) -> _Operands:
     if not isinstance(mat, torch.Tensor):
         mat = torch.as_tensor(np.asarray(mat))
     if not isinstance(vals, torch.Tensor):
         vals = torch.as_tensor(np.asarray(vals), device=mat.device)
-    rows, cols = (x if isinstance(x, torch.Tensor)
-                  else torch.as_tensor(np.asarray(x), device=vals.device) for x in (rows, cols))
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.as_tensor(np.asarray(rows), device=vals.device)
+    if not isinstance(cols, torch.Tensor):
+        cols = torch.as_tensor(np.asarray(cols), device=vals.device)
     if vals.dtype != mat.dtype:
         raise ValueError(f"vals and mat must share a dtype; got {vals.dtype} and {mat.dtype}")
     nnz = vals.shape[-1]
     if rows.shape[-1] != nnz or cols.shape[-1] != nnz:
         raise ValueError(f"rows/cols/vals must carry nnz entries on their last axis; got "
                          f"{tuple(rows.shape)}, {tuple(cols.shape)}, {tuple(vals.shape)}")
-    lead = tuple(torch.broadcast_shapes(vals.shape[:-1], mat.shape[:-2]))
+    lead = _broadcast(vals.shape[:-1], mat.shape[:-2])
     for name, x in (("rows", rows), ("cols", cols)):
-        if tuple(torch.broadcast_shapes(lead, x.shape[:-1])) != lead:
-            raise ValueError(f"{name} {tuple(x.shape)} does not broadcast to the batch {lead}")
+        if _broadcast(lead, x.shape[:-1]) != lead:
+            raise ValueError(f"{name} {tuple(x.shape)} does not broadcast to the batch {tuple(lead)}")
     batch = math.prod(lead)
-
-    def flat(x, tail):
-        if math.prod(x.shape[:x.dim() - len(tail)]) == 1:
-            return x.reshape((1,) + tail)
-        return x.expand(lead + tail).reshape((batch,) + tail)
-
-    return _Operands(lead, batch, flat(rows, (nnz,)), flat(cols, (nnz,)), flat(vals, (nnz,)),
-                     flat(mat, tuple(mat.shape[-2:])))
+    return _Operands(lead, batch, _flat(rows, lead, batch, 1), _flat(cols, lead, batch, 1),
+                     _flat(vals, lead, batch, 1), _flat(mat, lead, batch, 2))
 
 
 def check_coords(rows, cols, out_rows: int, src_rows: int) -> None:
@@ -113,10 +138,10 @@ def sparse_project_plain(rows, cols, vals, mat, out_rows: int) -> torch.Tensor:
 
 
 def sparse_project_prep(rows, out_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The entries of each batch member sorted stably by destination row:
-    ``perm`` (Bc, nnz) int32 and row pointers ``rowptr`` (Bc, out_rows + 1)
-    int32, so that row r's entries are ``perm[b, rowptr[b, r]:rowptr[b, r+1]]``
-    in their original order.  No atomics and no host synchronisation."""
+    """The plain version of kernel F's bucketing: the entries of each batch
+    member sorted stably by destination row, ``perm`` (Bc, nnz) int32 and row
+    pointers ``rowptr`` (Bc, out_rows + 1) int32, so that row r's entries are
+    ``perm[b, rowptr[b, r]:rowptr[b, r+1]]`` in their original order."""
     sorted_rows, perm = torch.sort(rows, dim=-1, stable=True)
     bounds = torch.arange(out_rows + 1, dtype=rows.dtype, device=rows.device)
     rowptr = torch.searchsorted(sorted_rows, bounds.expand(rows.shape[0], -1).contiguous(),
@@ -124,9 +149,8 @@ def sparse_project_prep(rows, out_rows: int) -> tuple[torch.Tensor, torch.Tensor
     return perm.to(torch.int32), rowptr
 
 
-def _lane_group(k: int) -> int:
-    """Lanes per destination row: the smallest of 8, 16, 32 that covers k."""
-    return 8 if k <= 8 else 16 if k <= 16 else 32
+def _int32(x):
+    return (x if x.dtype == torch.int32 else x.to(torch.int32)).contiguous()
 
 
 def cuda_operands(rows, cols, vals, mat) -> _Operands:
@@ -140,52 +164,137 @@ def cuda_operands(rows, cols, vals, mat) -> _Operands:
         if not x.is_cuda:
             raise ValueError(f"{name}: expected a CUDA tensor; got one on {x.device}")
     for name, x in (("rows", op.rows), ("cols", op.cols)):
-        if not x.is_cuda or x.dtype not in (torch.int32, torch.int64):
+        if not x.is_cuda or x.dtype not in _COORDS:
             raise ValueError(f"{name}: expected CUDA integer coordinates; got {x.dtype} "
                              f"on {x.device}")
-    if op.rows.shape[0] != op.cols.shape[0]:
-        # one batched and one shared: give both the batch
-        op = op._replace(rows=op.rows.expand(op.batch, -1), cols=op.cols.expand(op.batch, -1))
     if op.batch > _MAX_GRID_Y:
         raise ValueError(f"batch {op.batch} exceeds the kernel's {_MAX_GRID_Y}")
-    return op._replace(rows=op.rows.to(torch.int32).contiguous(),
-                       cols=op.cols.to(torch.int32).contiguous(),
-                       vals=op.vals.contiguous(), mat=op.mat.contiguous())
+    return op._replace(rows=_int32(op.rows), cols=_int32(op.cols), vals=op.vals.contiguous(),
+                       mat=op.mat.contiguous())
+
+
+# batch flags of csrc/sparse_proj.cu's entry points
+_ROWS, _COLS, _VALS, _MAT, _WALK = 1, 2, 4, 8, 16
+
+
+def _flags(op: _Operands) -> int:
+    """Which operands carry a member per batch member (the others the batch
+    shares, read at stride 0)."""
+    r, c, v, m = op.rows, op.cols, op.vals, op.mat
+    return ((r.dim() > 1 and r.shape[0] > 1) * _ROWS | (c.dim() > 1 and c.shape[0] > 1) * _COLS
+            | (v.dim() > 1 and v.shape[0] > 1) * _VALS | (m.dim() > 2 and m.shape[0] > 1) * _MAT)
+
+
+_ENTRY_POINTS: dict = {}
+
+
+def _entry(name: str):
+    """The library's entry point ``name``, looked up once."""
+    fn = _ENTRY_POINTS.get(name)
+    if fn is None:
+        fn = _ENTRY_POINTS[name] = getattr(_build.library("sparse_proj"), name)
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_ints(members: int, nnz: int, out_rows: int, walk: bool) -> int:
+    return _entry("sparse_scratch_ints")(members, nnz, out_rows, walk)
+
+
+def _card_operands(rows, cols, vals, mat) -> _Operands:
+    """``cuda_operands`` without the flattening views when every operand
+    already has a batch axis of its own of 1 or B, or none (the sketch's
+    calls): on the hot path each view costs microseconds of host time."""
+    if not (isinstance(rows, torch.Tensor) and isinstance(cols, torch.Tensor)
+            and isinstance(vals, torch.Tensor) and isinstance(mat, torch.Tensor)):
+        return cuda_operands(rows, cols, vals, mat)
+    rd, cd, vd, md = rows.dim(), cols.dim(), vals.dim(), mat.dim()
+    nnz = vals.shape[-1]
+    batch = max(vals.shape[0] if vd == 2 else 1, mat.shape[0] if md == 3 else 1)
+    if not (rd <= 2 and cd <= 2 and vd <= 2 and 2 <= md <= 3
+            and all(x.shape[0] in (1, batch) for x, d in ((rows, rd), (cols, cd), (vals, vd))
+                    if d == 2) and (md == 2 or mat.shape[0] in (1, batch))
+            and rows.shape[-1] == nnz and cols.shape[-1] == nnz and vals.dtype == mat.dtype
+            and mat.dtype in _SUFFIX and vals.is_cuda and mat.is_cuda and rows.is_cuda
+            and cols.is_cuda and rows.dtype in _COORDS and cols.dtype in _COORDS
+            and batch <= _MAX_GRID_Y):
+        return cuda_operands(rows, cols, vals, mat)   # broadcasts, or raises with the reason
+    return _Operands((batch,) if vd == 2 or md == 3 else (), batch, _int32(rows), _int32(cols),
+                     vals.contiguous(), mat.contiguous())
+
+
+def _project(op: _Operands, out_rows: int, walk: bool):
+    """Launch the bucketing (and the walk): ``(out, scratch, members)``."""
+    dt = op.mat.dtype
+    src, k = op.mat.shape[-2:]
+    nnz = op.vals.shape[-1]
+    flags = _flags(op)
+    members = op.batch if flags & _ROWS else 1
+    if members * max(nnz, out_rows + 1) >= 2 ** 31:
+        raise ValueError(f"{members} x {nnz} entries or {out_rows} rows exceed int32 positions")
+    out = torch.empty((op.batch, out_rows, k) if walk else (0,), dtype=dt, device=op.mat.device)
+    n_scratch = _scratch_ints(members, nnz, out_rows, walk)
+    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=op.mat.device) if n_scratch
+               else None)
+    fn = _entry(f"sparse_project_{_SUFFIX[dt]}")
+    _build.LAUNCHES["sparse_project"] += 1
+    _build.check(fn(op.rows.data_ptr(), op.cols.data_ptr(), op.vals.data_ptr(), op.mat.data_ptr(),
+                    out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), op.batch, nnz,
+                    out_rows, src, k, flags | (_WALK if walk else 0), _build.stream()),
+                 "sparse_project")
+    return out, scratch, members
+
+
+def sparse_bucket_cuda(rows, out_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel F's bucketing alone, on the card: ``rows`` (Bc, nnz) int32 CUDA,
+    every row in range -> ``(perm, rowptr)`` as ``sparse_project_prep`` gives
+    them."""
+    members, nnz = rows.shape
+    rows = _int32(rows)
+    dummy = torch.empty((1, 1, 1), dtype=torch.float64, device=rows.device)
+    _, scratch, _ = _project(_Operands((members,), members, rows, rows, dummy[0].expand(1, nnz),
+                                       dummy), out_rows, walk=False)
+    slots = members * (out_rows + 1)     # the scratch starts with rowptr, then perm
+    rowptr = scratch[:slots].view(members, out_rows + 1)
+    perm = scratch[slots:slots + members * nnz].view(members, nnz)
+    first = torch.arange(members, device=rows.device, dtype=torch.int32)[:, None] * nnz
+    return perm - first, rowptr - rowptr[:, :1]
 
 
 def sparse_project_launch(perm, rowptr, op: _Operands, out_rows: int) -> torch.Tensor:
-    """Kernel F alone, on operands prepared by ``cuda_operands`` and the
-    permutation of ``sparse_project_prep``: (B, out_rows, k)."""
+    """Kernel F's walk alone, on operands prepared by ``cuda_operands`` and a
+    bucketing ``(perm, rowptr)`` laid out as ``sparse_project_prep`` gives it
+    ((1 or B, nnz) and (1 or B, out_rows + 1), contiguous): (B, out_rows, k)."""
     dt = op.mat.dtype
-    k = op.mat.shape[-1]
+    src, k = op.mat.shape[-2:]
     nnz = op.vals.shape[-1]
     out = torch.empty((op.batch, out_rows, k), dtype=dt, device=op.mat.device)
     if out.numel() == 0:
         return out
-    shared = lambda x: x.shape[0] == 1 and op.batch > 1  # noqa: E731
-    group = _lane_group(k)
-    fn = getattr(_build.library("sparse_proj"), f"sparse_project_{_SUFFIX[dt]}")
+    flags = (_flags(op) & ~_ROWS) | (_ROWS if perm.shape[0] > 1 else 0)
+    fn = _entry(f"sparse_walk_{_SUFFIX[dt]}")
     _build.LAUNCHES["sparse_project"] += 1
-    _build.check(fn(*_build.ptrs(perm, rowptr, op.cols, op.vals, op.mat, out), op.batch,
-                    out_rows, k, group, 0 if shared(op.cols) else nnz,
-                    0 if shared(rowptr) else out_rows + 1, 0 if shared(op.vals) else nnz,
-                    0 if shared(op.mat) else op.mat.shape[-2] * k, _build.stream()),
-                 "sparse_project")
+    _build.check(fn(perm.contiguous().data_ptr(), rowptr.contiguous().data_ptr(),
+                    op.cols.data_ptr(), op.vals.data_ptr(), op.mat.data_ptr(), out.data_ptr(),
+                    op.batch, nnz, out_rows, src, k, flags, _build.stream()), "sparse_project")
     return out
 
 
 def sparse_project_cuda(rows, cols, vals, mat, out_rows: int) -> torch.Tensor:
-    """Kernel F with its index preparation, on CUDA tensors (f32 or f64)."""
-    op = cuda_operands(rows, cols, vals, mat)
-    perm, rowptr = sparse_project_prep(op.rows, out_rows)
-    out = sparse_project_launch(perm, rowptr, op, out_rows)
-    return out.reshape(op.lead + (out_rows, op.mat.shape[-1]))
+    """Kernel F on CUDA tensors (f32 or f64): the bucketing and the walk in
+    one call."""
+    op = _card_operands(rows, cols, vals, mat)
+    k = op.mat.shape[-1]
+    if op.batch * out_rows * k == 0:
+        return torch.empty(tuple(op.lead) + (out_rows, k), dtype=op.mat.dtype, device=op.mat.device)
+    out = _project(op, out_rows, walk=True)[0]
+    return out if len(op.lead) == 1 else out.reshape(tuple(op.lead) + (out_rows, k))
 
 
 def sparse_project(rows, cols, vals, mat, out_rows: int) -> torch.Tensor:
     """``out = S @ mat`` for the COO ``S``: the plain version for CPU tensors,
     kernel F when ``vals`` or ``mat`` lies on a card."""
-    on_card = any(isinstance(x, torch.Tensor) and x.is_cuda for x in (vals, mat))
-    if on_card:
+    if ((isinstance(vals, torch.Tensor) and vals.is_cuda)
+            or (isinstance(mat, torch.Tensor) and mat.is_cuda)):
         return sparse_project_cuda(rows, cols, vals, mat, out_rows)
     return sparse_project_plain(rows, cols, vals, mat, out_rows)

@@ -227,6 +227,64 @@ def test_sparse_kernel_refuses_what_it_does_not_take(cuda_device):
                           t(mat, torch.float64, cuda_device), 8)
 
 
+def _bucket_case(rng, case):
+    """(rows, cols, vals, mat, out_rows) of one bucketing case, numpy."""
+    m, n, nnz, k, bsz = 96, 80, 700, 16, None
+    if case == "rows32768":             # an embedding table's row count, B=2
+        m, n, nnz, bsz = 32768, 64, 40000, 2
+    if case == "rows70000":             # row counters beyond shared memory
+        m, n, nnz = 70000, 64, 5000
+    if case == "per_member":
+        bsz = 3
+    if case == "nnz0":
+        nnz = 0
+    rows = rng.integers(0, m - 5, (() if bsz is None or case != "per_member" else (bsz,))
+                        + (nnz,)).astype(np.int32)          # the last 5 rows stay empty
+    if case == "one_row_256":
+        rows[rng.choice(nnz, 256, replace=False)] = 7
+    if case == "all_in_one_row":
+        rows[:] = 11
+    cols = rng.integers(0, n, rows.shape).astype(np.int32)
+    lead = () if bsz is None else (bsz,)
+    return rows, cols, rng.normal(size=lead + (nnz,)), rng.normal(size=lead + (n, k)), m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["spread", "one_row_256", "nnz0", "all_in_one_row", "rows32768",
+                                  "rows70000", "per_member"])
+def test_sparse_bucketing_on_card_matches_prep(cuda_device, dtype, case):
+    """The device bucketing equals the plain one (``sparse_project_prep``:
+    stable sort and ``searchsorted``) entry for entry, whatever order its
+    atomics took; the projection on it matches the plain version, twice to
+    the bit, and empty rows are zero.  Shared coordinates (``rows32768``, B=2
+    against one COO pattern) and per-member ones (``per_member``); the
+    row-block path (up to 24576 entries, also at 70000 rows) and the
+    cooperative one (``rows32768``: 40000 entries)."""
+    rng = np.random.default_rng(38)
+    rows, cols, vals, mat, out_rows = _bucket_case(rng, case)
+    r = torch.as_tensor(rows, device=cuda_device)
+    r = r if r.dim() == 2 else r[None]
+    perm, rowptr = SP.sparse_bucket_cuda(r, out_rows)
+    want_perm, want_rowptr = SP.sparse_project_prep(r, out_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(rowptr, want_rowptr)
+    assert torch.equal(perm, want_perm)
+    args = (r.reshape(rows.shape), torch.as_tensor(cols, device=cuda_device),
+            t(vals, dtype, cuda_device), t(mat, dtype, cuda_device))
+    before = _build.LAUNCHES["sparse_project"]
+    got = SP.sparse_project_cuda(*args, out_rows)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sparse_project"] == before + 1
+    want = SP.sparse_project_plain(*args, out_rows)
+    assert got.shape == want.shape
+    scale = max(float(want.abs().max()), 1e-300)
+    assert float((got - want).abs().max()) / scale <= SPARSE_TOL[dtype]
+    assert torch.equal(got, SP.sparse_project_cuda(*args, out_rows))
+    assert float(got[..., out_rows - 5:, :].abs().max()) == 0.0
+    walked = SP.sparse_project_launch(want_perm, want_rowptr, SP.cuda_operands(*args), out_rows)
+    assert torch.equal(walked.reshape(got.shape), got)      # the walk alone, on the plain bucketing
+
+
 def _secular_random(rng, bsz, n, m):
     """``tests/test_kernels.py``'s brackets: poles in [0, 5], weights in
     [0.01, 1], rho 0.7, brackets [0, width], width in [0.01, 0.5]."""
@@ -279,10 +337,13 @@ def test_secular_kernel_on_real_brackets(cuda_device, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(1, 5, 4, 12, 6), (2, 37, 3, 45, 29), (3, 70, 5, 100, 33)])
+@pytest.mark.parametrize("shape", [(1, 5, 4, 12, 6), (2, 37, 3, 45, 29), (3, 70, 5, 100, 33),
+                                   (2, 100, 3, 45, 7), (1, 33, 4, 30, 1), (1, 300, 2, 408, 136)])
 def test_nearfield_kernel_matches_plain(cuda_device, dtype, shape):
-    """Ragged rows, sources and targets (not multiples of the 32 x 32 tile),
-    zeroed source slots, masked targets and one exact zero denominator."""
+    """Ragged rows, sources and targets (not multiples of the kernel's row
+    tiles, 8-source step or 48-target panel; capt = 1), zeroed source
+    slots, masked targets and one exact zero denominator; two launches equal
+    to the bit."""
     bsz, r, nb, c3, capt = shape
     rng = np.random.default_rng(r * c3)
     w = rng.normal(size=(bsz, r, nb, c3))
@@ -299,6 +360,29 @@ def test_nearfield_kernel_matches_plain(cuda_device, dtype, shape):
     assert _build.LAUNCHES["nearfield"] == before + 1
     want = NF.nearfield_plain(*args)
     assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max() / want.abs().max()) <= NEAR_TOL[dtype]
+    assert torch.equal(got, NF.nearfield_cuda(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c3,offset", [(1100, 0), (45, 1), (46, 1)])
+def test_nearfield_kernel_chunks_and_unaligned_weights(cuda_device, dtype, c3, offset):
+    """More sources than one shared-memory panel holds (3cap 1100: two chunks
+    in f64, two in f32, the second added to out in a fixed order), and w
+    starting off a 16-byte boundary (read element by element)."""
+    rng = np.random.default_rng(c3 + offset)
+    bsz, r, nb, capt = 1, 40, 2, 50
+    w = t(rng.normal(size=(bsz, r, nb, c3)), dtype, cuda_device)
+    store = torch.empty(w.numel() + offset, dtype=dtype, device=cuda_device)
+    w_off = store[offset:].view(w.shape)
+    w_off.copy_(w)
+    args = [w_off] + [t(v, dtype, cuda_device) for v in (
+        rng.uniform(0, 1, (bsz, nb, c3)), rng.uniform(0, 1, (bsz, nb, capt)),
+        rng.normal(size=(bsz, nb, capt)) * 1e-4)]
+    args.append(torch.as_tensor(rng.uniform(size=(bsz, nb, capt)) > 0.2, device=cuda_device))
+    got = NF.nearfield_cuda(*args)
+    want = NF.nearfield_plain(w, *args[1:])
+    torch.cuda.synchronize()
     assert float((got - want).abs().max() / want.abs().max()) <= NEAR_TOL[dtype]
     assert torch.equal(got, NF.nearfield_cuda(*args))
 
