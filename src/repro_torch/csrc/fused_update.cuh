@@ -1,27 +1,48 @@
-// Kernels A and B: the fused rank-1 SVD update, one thread block per update.
+// Kernels A and B: the fused rank-1 SVD update, a thread-block cluster per
+// update.
 //
 // Kernel A replaces repro/kernels/fused_update.py: fused_update_pallas_batched
-// (and fused_update_pallas, which is this kernel at B = 1).  Kernel B replaces
-// fused_update_truncated_pallas_batched (and fused_update_truncated_pallas).
-// The per-update computation is fused::full_core in fused_core.cuh.
+// (:566; and fused_update_pallas, which is this kernel at B = 1).  Kernel B
+// replaces fused_update_truncated_pallas_batched (:601; and
+// fused_update_truncated_pallas).  The per-update computation is
+// fused::full_core in fused_core.cuh.
 //
-// What bounds them on an H100: not memory.  A full update at (m, n) moves
-// about 2 (m^2 + n^2) elements, but runs four secular phases of
-// 22 sweeps over k roots x k poles (one division each), dense (k, k)
-// products for every phase operator (about 3 k^3 multiply-adds per phase
-// pair), and the rotations u @ G_u, v @ G_v.  That is hundreds of operations
-// per byte, so the bound is the card's f32 / f64 rate.  Kernel B's secular
-// core is only (r+1)-sized; its bytes (the (m + n) x r factors, read and
-// written once) and its factor rotations ((m + n) (r+1) r multiply-adds)
-// leave it bound by memory at the large shapes.
+// What bounds them on an H100.  A full update at (m, n) moves about
+// 2 (m^2 + n^2) elements but does hundreds of operations per element: four
+// secular phases of 22 sweeps over k roots x k poles (a division each), and
+// the dense products (each side's G, U @ G_u, V @ G_v), so the card's f32 /
+// f64 rate is the bound (0.0026 ms for a B128 (32, 48) f64 batch).  Kernel
+// B's bytes (the (m + n) x r factors, read and written once) bound it.  What
+// holds both far above those bounds is latency (tools/fused_phases.cu on the
+// card, PERF.md): 22 dependent sweeps a root, each an IEEE division (a few
+// hundred cycles on this card) and a butterfly; barriers between the steps
+// of a phase; and, at (256, 320) f32, the scratch tier's stores drained at
+// every team barrier.  The one-block kernels this replaces held one thread a
+// root (52 % of B's time at m512 n768 r16), scalar products from a
+// device-memory scratch (62 % of A's at (256, 320) f32) and one SM an update
+// (B's rotations at m1024 n4096 r32 ran on 8 of 132 SMs).
 //
-// What the design does about it, in this first version: little on purpose.
-// One block of 256 threads per update keeps the whole update in one launch
-// and every vector in shared memory, with the (k, k) operators in a
-// device-memory scratch that stays in L2 at these sizes.  Secular roots and
-// matrix entries are spread over the block's threads.  With B updates only B
-// of the 132 SMs work, which is the first thing a later version changes (a
-// cluster or several blocks per update, tensor-core products).
+// Design.  A launch runs c blocks per update as one thread-block cluster,
+// launched with cudaLaunchKernelEx: c is the largest power of two with
+// c <= 8 (the portable limit: a cluster of 16 needs the non-portable
+// attribute and would have at most the 16-18 SMs of one GPC to itself),
+// B c <= the card's SMs, and all B clusters on the card at once
+// (cudaOccupancyMaxActiveClusters; a cluster's blocks share one GPC, so at
+// B = 16 sixteen clusters of 8 do not fit together and a second wave would
+// double the time).  Kernel A runs the whole update on the cluster as a
+// team: roots, poles and columns shared out, the operators stored by rows in
+// distributed shared memory where the five live slots fit (one block: its
+// own shared memory), else in a scratch of the live set (1.3 MB an update at
+// (256, 320) f32, so a B32 batch stays in L2), the left and right chains
+// solved together, products tiled through shared memory, f64 on the DMMA
+// tensor cores.  Kernel B splits the
+// Brand projections and residuals (reduced over the cluster in rank order
+// through distributed shared memory) and the factor rotations ([U p] @ G_u,
+// by row slices), reading its rows of U and V once into shared memory where
+// they fit and keeping their residuals there; every block computes the
+// (r + 1) core itself on the implicit identity basis (no eye @ G product), so
+// no block waits on another for it and all hold the same bits.  The secular
+// roots run a lane group each.  No TF32, no library GEMM.
 //
 // Storage types: float and double compute in their own type; bf16 and f16
 // storage is read, upcast to float on load (as the TPU kernel upcasts after
@@ -36,37 +57,59 @@
 namespace {
 
 using fused::Ctx;
+using fused::Team;
 using fused::THREADS;
 
 template <typename T, typename S>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_update_kernel(const S* u, const S* s, const S* v, const S* a, const S* b, S* uo, S* so,
                     S* vo, S* dlo, S* dro, T* scratch, int m, int n, double rtol, int nb,
-                    int nn, int sign_fix) {
+                    int nn, int sign_fix, int csz, int ops_in_smem) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const long i = blockIdx.x;
-  const int kmax = fused::kmax_of(m, n);
-  const long per = (long)fused::N_FULL_MATS * kmax * kmax;
-  Ctx<T> c = fused::make_ctx<T>(smem, scratch + i * per, kmax, rtol, nb, nn);
+  const long i = blockIdx.x / csz;
+  const Team tm{(int)(blockIdx.x % csz), csz};
+  const int kmax = fused::kmax_of(m, n), kc = fused::chain_k(m, n);
+  const fused::Layout L = fused::layout<T>(kmax, kc, csz, ops_in_smem != 0);
+  T* ops_mem = ops_in_smem ? nullptr : scratch + i * fused::N_OPS * kc * kc;
+  Ctx<T> c = fused::make_ctx<T>(smem, L, tm, kmax, kc, ops_mem, rtol, nb, nn);
+  FUSED_MARK_START();
   const long mm = (long)m * m, nn2 = (long)n * n;
-  fused::full_core<T, S, S>(m, n, u + i * mm, s + i * m, v + i * nn2, a + i * m, b + i * n,
-                            uo + i * mm, so + i * m, vo + i * nn2, dlo + i * m, dro + i * n,
-                            sign_fix != 0, c);
+  fused::full_core<T, S, S, false>(m, n, u + i * mm, s + i * m, v + i * nn2, a + i * m,
+                                   b + i * n, uo + i * mm, so + i * m, vo + i * nn2, dlo + i * m,
+                                   dro + i * n, sign_fix != 0, c);
+}
+
+// Kernel B's flags, and where its residuals and cached rows start.
+constexpr int B_OPS_SMEM = 1, B_PERP_SCRATCH = 2, B_CACHE_ROWS = 4;
+__host__ __device__ inline size_t trunc_extra_offset(const fused::Layout& L) {
+  return (L.total + 15) & ~(size_t)15;
 }
 
 template <typename T, typename S>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_update_truncated_kernel(const S* u, const S* s, const S* v, const S* a, const S* b,
                               S* uo, S* so, S* vo, T* scratch, int m, int n, int r,
-                              double rtol, int nb, int nn) {
+                              double rtol, int nb, int nn, int csz, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const long bi = blockIdx.x;
+  const long bi = blockIdx.x / csz;
+  const Team cl{(int)(blockIdx.x % csz), csz};  // Brand projections and rotations
+  const Team one{0, 1};                          // the core: every block computes it
   const int k = r + 1;
-  const int kmax = fused::kmax_of(k, k);
-  const long per = (long)fused::N_TRUNC_MATS * kmax * kmax + m + n;
-  T* mats = scratch + bi * per;
-  Ctx<T> c = fused::make_ctx<T>(smem, mats, kmax, rtol, nb, nn);
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const bool ops_in_smem = flags & B_OPS_SMEM, cache_rows = flags & B_CACHE_ROWS;
+  const fused::Layout L = fused::layout<T>(k, k, 1, ops_in_smem);
+  const int ulo = cl.lo(m), uhi = cl.hi(m), vlo = cl.lo(n), vhi = cl.hi(n);
+  // after the core's layout: the residuals of this block's rows (a_perp,
+  // b_perp), then (cache_rows) its rows of U and V; in the scratch: the
+  // residuals of every update (B_PERP_SCRATCH), then each block's operators
+  T* sp = reinterpret_cast<T*>(smem + trunc_extra_offset(L));
+  T* perp_a = flags & B_PERP_SCRATCH ? scratch + bi * (m + n) : sp - ulo;
+  T* perp_b = flags & B_PERP_SCRATCH ? scratch + bi * (m + n) + m : sp + (uhi - ulo) - vlo;
+  T* ops_mem = ops_in_smem ? nullptr
+                           : scratch + (flags & B_PERP_SCRATCH ? (long)gridDim.x / csz * (m + n) : 0) +
+                                 (long)blockIdx.x * fused::ops_elems(k, 1);
+  Ctx<T> c = fused::make_ctx<T>(smem, L, one, k, k, ops_mem, rtol, nb, nn);
+  FUSED_MARK_START();
   u += bi * m * (long)r;
   v += bi * n * (long)r;
   s += bi * r;
@@ -75,107 +118,285 @@ fused_update_truncated_kernel(const S* u, const S* s, const S* v, const S* a, co
   uo += bi * m * (long)r;
   vo += bi * n * (long)r;
   so += bi * r;
-  T* p_unit = mats + (long)fused::N_TRUNC_MATS * kmax * kmax;  // (m): a_perp, then unit
-  T* q_unit = p_unit + m;                                      // (n)
   T* pvec = c.v(fused::T_PVEC);
   T* qvec = c.v(fused::T_QVEC);
   T* saug = c.v(fused::T_SAUG);
   T* ak = c.v(fused::T_AK);
   T* bk = c.v(fused::T_BK);
-  T* ss = c.v(fused::T_SS);
-  T* eye = c.mat(fused::M_EYE);
-  T* uu = c.mat(fused::M_UU);
-  T* vv = c.mat(fused::M_VV);
+  T* part = c.xchg;  // [0, r): U^T a over this block's rows, [r, 2r): V^T b, then |a_perp|^2, |b_perp|^2
 
-  // Brand: project a and b off the bases; residual norms and unit vectors
-  fused::matmul<T>(r, 1, m, u, 1, r, a, 1, 0, pvec, 1, 0);  // U^T a
-  fused::matmul<T>(r, 1, n, v, 1, r, b, 1, 0, qvec, 1, 0);  // V^T b
+  // this block's rows of U and V: read once into shared memory when they fit
+  // beside the core (every later pass reads them there), else read in place
+  T* su = sp + (uhi - ulo) + (vhi - vlo);
+  T* sv = su + (long)(uhi - ulo) * r;
+  if (cache_rows) {
+#pragma unroll 4
+    for (long e = tid; e < (long)(uhi - ulo) * r; e += THREADS) su[e] = fused::ld<T>(u + (long)ulo * r, e);
+#pragma unroll 4
+    for (long e = tid; e < (long)(vhi - vlo) * r; e += THREADS) sv[e] = fused::ld<T>(v + (long)vlo * r, e);
+    __syncthreads();
+  }
+  auto uat = [&](int i, int l) {   // U[i, l], i a row of this block
+    return cache_rows ? su[(long)(i - ulo) * r + l] : fused::ld<T>(u, (long)i * r + l);
+  };
+  auto vat = [&](int i, int l) {
+    return cache_rows ? sv[(long)(i - vlo) * r + l] : fused::ld<T>(v, (long)i * r + l);
+  };
+
+  // Brand: project a and b off the bases, over this block's rows
+  fused::colsum<T>(0, r, uhi - ulo,
+                   [&](int l, int j) { return uat(ulo + l, j) * fused::ld<T>(a, ulo + l); },
+                   part, c.stage);
+  fused::colsum<T>(0, r, vhi - vlo,
+                   [&](int l, int j) { return vat(vlo + l, j) * fused::ld<T>(b, vlo + l); },
+                   part + r, c.stage);
+  cl.sync();
+  // every block adds the cluster's partial sums in rank order: the same bits
+  for (int l = tid; l < 2 * r; l += THREADS) {
+    T acc = T(0);
+    for (int q = 0; q < csz; ++q) acc += cl.map(part, q)[l];
+    if (l < r) pvec[l] = acc; else qvec[l - r] = acc;
+  }
   __syncthreads();
-  for (int i = tid; i < m; i += nt) {
-    T acc = T(0);
-    for (int l = 0; l < r; ++l) acc += fused::ld<T>(u, (long)i * r + l) * pvec[l];
-    p_unit[i] = fused::ld<T>(a, i) - acc;
+  // residuals of this block's rows, and their squared norms
+  fused::rowsum<T>(ulo, uhi, r, [&](int i, int l) { return uat(i, l) * pvec[l]; },
+                   [&](int i, T x) { perp_a[i] = fused::ld<T>(a, i) - x; });
+  fused::rowsum<T>(vlo, vhi, r, [&](int i, int l) { return vat(i, l) * qvec[l]; },
+                   [&](int i, T x) { perp_b[i] = fused::ld<T>(b, i) - x; });
+  __syncthreads();
+  T na = T(0), nbb = T(0);
+  for (int i = ulo + tid; i < uhi; i += THREADS) na += perp_a[i] * perp_a[i];
+  for (int i = vlo + tid; i < vhi; i += THREADS) nbb += perp_b[i] * perp_b[i];
+  na = fused::block_reduce(na, c.red, fused::SumOp());
+  nbb = fused::block_reduce(nbb, c.red, fused::SumOp());
+  if (tid == 0) {
+    part[2 * r] = na;
+    part[2 * r + 1] = nbb;
   }
-  for (int i = tid; i < n; i += nt) {
-    T acc = T(0);
-    for (int l = 0; l < r; ++l) acc += fused::ld<T>(v, (long)i * r + l) * qvec[l];
-    q_unit[i] = fused::ld<T>(b, i) - acc;
+  cl.sync();
+  T ra2 = T(0), rb2 = T(0);
+  for (int q = 0; q < csz; ++q) {
+    const T* pq = cl.map(part, q);
+    ra2 += pq[2 * r];
+    rb2 += pq[2 * r + 1];
   }
-  T ra = fused::m_sqrt(fused::block_dot(m, p_unit, (const T*)nullptr, c.red));
-  T rb = fused::m_sqrt(fused::block_dot(n, q_unit, (const T*)nullptr, c.red));
+  cl.sync();  // every block has read the others' partial sums
+  T ra = fused::m_sqrt(ra2), rb = fused::m_sqrt(rb2);
   const bool ok_a = ra > T(1e-12), ok_b = rb > T(1e-12);
-  for (int i = tid; i < m; i += nt) p_unit[i] = ok_a ? p_unit[i] / ra : T(0);
-  for (int i = tid; i < n; i += nt) q_unit[i] = ok_b ? q_unit[i] / rb : T(0);
   ra = ok_a ? ra : T(0);
   rb = ok_b ? rb : T(0);
+  FUSED_MARK(0);
 
-  // the full core on the (r+1) identity basis
-  for (int i = tid; i < k; i += nt) {
+  // the full core on the implicit (r+1) identity basis
+  for (int i = tid; i < k; i += THREADS) {
     saug[i] = i < r ? fused::ld<T>(s, i) : T(0);
     ak[i] = i < r ? pvec[i] : ra;
     bk[i] = i < r ? qvec[i] : rb;
   }
-  for (long e = tid; e < (long)k * k; e += nt) eye[e] = (e / k == e % k) ? T(1) : T(0);
   __syncthreads();
-  fused::full_core<T, T, T>(k, k, eye, saug, eye, ak, bk, uu, ss, vv, (T*)nullptr,
-                            (T*)nullptr, true, c);
+  fused::full_core<T, T, T, true>(k, k, (const T*)nullptr, saug, (const T*)nullptr, ak, bk,
+                                  (T*)nullptr, (T*)nullptr, (T*)nullptr, (T*)nullptr,
+                                  (T*)nullptr, true, c);
+  const fused::Ops<T> ops = c.ops;
+  const T* dl = c.v(fused::F_DL);
+  const T* flip = c.v(fused::F_FLIP);
 
-  // rotate the augmented factors, keep the top r: streamed over the rows
-  for (long e = tid; e < (long)m * r; e += nt) {
-    const long i = e / r;
-    const int j = e % r;
-    T acc = T(0);
-    for (int l = 0; l < r; ++l) acc += fused::ld<T>(u, i * r + l) * uu[(long)l * k + j];
-    acc += p_unit[i] * uu[(long)r * k + j];
-    fused::st(uo, e, acc);
-  }
-  for (long e = tid; e < (long)n * r; e += nt) {
-    const long i = e / r;
-    const int j = e % r;
-    T acc = T(0);
-    for (int l = 0; l < r; ++l) acc += fused::ld<T>(v, i * r + l) * vv[(long)l * k + j];
-    acc += q_unit[i] * vv[(long)r * k + j];
-    fused::st(vo, e, acc);
-  }
-  for (int j = tid; j < r; j += nt) fused::st(so, j, ss[j]);
+  // rotate this block's rows of the augmented factors, keep the top r:
+  // u_new = [U a_perp / ra] @ G_u[:, :r], v_new = [V b_perp / rb] @ (G_v F)[:, :r]
+  fused::gemm<T>(0, 1, uhi - ulo, r, k,
+                 [&](int i, int l) {
+                   return l < r ? uat(ulo + i, l) : (ok_a ? perp_a[ulo + i] / ra : T(0));
+                 },
+                 [&](int l, int j) { return *ops.at(fused::O_GL, k - 1 - l, k - 1 - j); },
+                 [&](int i, int j, T x) { fused::st(uo, (long)(ulo + i) * r + j, x); }, c.stage);
+  fused::gemm<T>(0, 1, vhi - vlo, r, k,
+                 [&](int i, int l) {
+                   return l < r ? vat(vlo + i, l) : (ok_b ? perp_b[vlo + i] / rb : T(0));
+                 },
+                 [&](int l, int j) { return *ops.at(fused::O_GR, k - 1 - l, k - 1 - j) * flip[j]; },
+                 [&](int i, int j, T x) { fused::st(vo, (long)(vlo + i) * r + j, x); }, c.stage);
+  if (cl.rank == 0)
+    for (int j = tid; j < r; j += THREADS) fused::st(so, j, fused::m_sqrt(dl[j] > T(0) ? dl[j] : T(0)));
+  FUSED_MARK(7);
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+// The card's SM count, read once.
+inline int card_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
   }
+  return sms;
+}
+
+// How a launch runs: blocks per update, where the operators live (0: shared
+// memory, 1: distributed shared memory, 2: device scratch), the dynamic
+// shared memory of a block and the scratch elements of the launch.
+struct Plan {
+  int csz, tier;
+  size_t smem;
+  long long scratch;
+  int flags;   // kernel B: B_OPS_SMEM | B_PERP_SCRATCH | B_CACHE_ROWS
+};
+
+constexpr int ERR_TOO_LARGE = 1001;  // a shape the kernels cannot take
+
+inline cudaLaunchConfig_t cluster_config(int grid, int csz, size_t smem, void* stream,
+                                   cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csz;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Raises the kernel's dynamic shared memory limit to ``smem`` (once a size).
+template <typename Kern>
+int allow_smem(Kern kern, size_t smem) {
+  static size_t set = 48 * 1024;
+  if (smem <= set) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)fused::SMEM_MAX);
+  if (e != cudaSuccess) return (int)e;
+  set = fused::SMEM_MAX;
   return 0;
+}
+
+// How many clusters of ``csz`` blocks of ``smem`` bytes the card runs at once
+// (cudaOccupancyMaxActiveClusters: a cluster's blocks share one GPC), cached.
+template <typename Kern>
+int active_clusters(Kern kern, int csz, size_t smem) {
+  static size_t key[4] = {0, 0, 0, 0};
+  static int val[4] = {0, 0, 0, 0};
+  const int slot = csz == 8 ? 3 : csz == 4 ? 2 : csz == 2 ? 1 : 0;
+  if (key[slot] == smem + 1) return val[slot];
+  if (allow_smem(kern, smem)) return 0;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(csz, csz, smem, nullptr, attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    n = 0;
+  }
+  key[slot] = smem + 1;
+  val[slot] = n;
+  return n;
+}
+
+// Blocks per update: the largest power of two c <= MAXC with B c <= SMs and
+// all B clusters on the card at once; where the operators live and the
+// shared memory for that c (``place``), and false when even one block's
+// vectors exceed its shared memory.
+template <typename Kern, typename Place>
+bool choose(Kern kern, int B, Plan& p, Place place) {
+  const int sms = card_sms();
+  for (int c = fused::MAXC; c >= 1; c >>= 1) {
+    if (!place(c, p)) continue;
+    if (c == 1 || ((long)B * c <= sms && active_clusters(kern, c, p.smem) >= B)) return true;
+  }
+  return place(1, p);
+}
+
+template <typename T, typename S>
+bool full_plan(int B, int m, int n, Plan& p) {
+  const int kmax = fused::kmax_of(m, n), kc = fused::chain_k(m, n);
+  return choose(fused_update_kernel<T, S>, B, p, [&](int c, Plan& q) {
+    q.csz = c;
+    const size_t in = fused::layout<T>(kmax, kc, c, true).total;
+    if (in <= (size_t)fused::SMEM_MAX) {
+      q.tier = c > 1 ? 1 : 0;
+      q.smem = in;
+      q.scratch = 0;
+      q.flags = 0;
+      return true;
+    }
+    q.tier = 2;
+    q.flags = 0;
+    q.smem = fused::layout<T>(kmax, kc, c, false).total;
+    q.scratch = (long long)B * fused::N_OPS * kc * kc;
+    return q.smem <= (size_t)fused::SMEM_MAX;
+  });
+}
+
+template <typename T, typename S>
+bool trunc_plan(int B, int m, int n, int r, Plan& p) {
+  const int k = r + 1;
+  return choose(fused_update_truncated_kernel<T, S>, B, p, [&](int c, Plan& q) {
+    const size_t cap = fused::SMEM_MAX;
+    q.csz = c;
+    const fused::Layout in = fused::layout<T>(k, k, 1, true);
+    q.tier = in.total <= cap ? 0 : 2;
+    q.flags = q.tier == 0 ? B_OPS_SMEM : 0;
+    const size_t base = trunc_extra_offset(fused::layout<T>(k, k, 1, q.tier == 0));
+    const size_t rows = (size_t)((m + c - 1) / c + (n + c - 1) / c);
+    q.scratch = q.tier == 0 ? 0 : (long long)B * c * fused::ops_elems(k, 1);
+    q.smem = base + rows * sizeof(T);
+    if (q.smem > cap) {
+      q.flags |= B_PERP_SCRATCH;
+      q.scratch += (long long)B * (m + n);
+      q.smem = base;
+    } else if (q.smem + rows * r * sizeof(T) <= cap) {
+      q.flags |= B_CACHE_ROWS;
+      q.smem += rows * r * sizeof(T);
+    }
+    return q.smem <= cap;
+  });
+}
+
+template <typename Kern, typename... Args>
+int launch_cluster(Kern kern, int grid, const Plan& p, void* stream, Args... args) {
+  const int err = allow_smem(kern, p.smem);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(grid, p.csz, p.smem, stream, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename T, typename S>
 int launch_full(const void* u, const void* s, const void* v, const void* a, const void* b,
                 void* uo, void* so, void* vo, void* dlo, void* dro, void* scratch, int B, int m,
                 int n, double rtol, int nb, int nn, int sign_fix, void* stream) {
-  const size_t bytes = fused::smem_bytes<T>(fused::kmax_of(m, n));
-  auto kern = fused_update_kernel<T, S>;
-  int err = set_smem(kern, bytes);
-  if (err) return err;
-  kern<<<B, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const S*)u, (const S*)s, (const S*)v, (const S*)a, (const S*)b, (S*)uo, (S*)so, (S*)vo,
-      (S*)dlo, (S*)dro, (T*)scratch, m, n, rtol, nb, nn, sign_fix);
-  return (int)cudaGetLastError();
+  Plan p;
+  if (!full_plan<T, S>(B, m, n, p)) return ERR_TOO_LARGE;
+  if (B == 0) return 0;
+  return launch_cluster(fused_update_kernel<T, S>, B * p.csz, p, stream, (const S*)u,
+                        (const S*)s, (const S*)v, (const S*)a, (const S*)b, (S*)uo, (S*)so,
+                        (S*)vo, (S*)dlo, (S*)dro, (T*)scratch, m, n, rtol, nb, nn, sign_fix,
+                        p.csz, p.tier < 2 ? 1 : 0);
 }
 
 template <typename T, typename S>
 int launch_trunc(const void* u, const void* s, const void* v, const void* a, const void* b,
                  void* uo, void* so, void* vo, void* scratch, int B, int m, int n, int r,
                  double rtol, int nb, int nn, void* stream) {
-  const size_t bytes = fused::smem_bytes<T>(fused::kmax_of(r + 1, r + 1));
-  auto kern = fused_update_truncated_kernel<T, S>;
-  int err = set_smem(kern, bytes);
-  if (err) return err;
-  kern<<<B, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const S*)u, (const S*)s, (const S*)v, (const S*)a, (const S*)b, (S*)uo, (S*)so, (S*)vo,
-      (T*)scratch, m, n, r, rtol, nb, nn);
-  return (int)cudaGetLastError();
+  Plan p;
+  if (!trunc_plan<T, S>(B, m, n, r, p)) return ERR_TOO_LARGE;
+  if (B == 0) return 0;
+  return launch_cluster(fused_update_truncated_kernel<T, S>, B * p.csz, p, stream,
+                        (const S*)u, (const S*)s, (const S*)v, (const S*)a, (const S*)b, (S*)uo,
+                        (S*)so, (S*)vo, (T*)scratch, m, n, r, rtol, nb, nn, p.csz, p.flags);
+}
+
+template <typename T, typename S>
+int plan_entry(int kind, int B, int m, int n, int r, long long* out) {
+  Plan p;
+  const bool ok = kind == 0 ? full_plan<T, S>(B, m, n, p) : trunc_plan<T, S>(B, m, n, r, p);
+  out[0] = p.csz;
+  out[1] = p.tier;
+  out[2] = (long long)p.smem;
+  out[3] = p.scratch;
+  return ok ? 0 : ERR_TOO_LARGE;
 }
 
 }  // namespace
@@ -195,14 +416,22 @@ int launch_trunc(const void* u, const void* s, const void* v, const void* a, con
                               stream);                                                         \
   }
 
-
-// elements of compute type per update in the scratch the wrapper allocates
-#define SCRATCH_ENTRIES                                                                        \
-  long long fused_full_scratch_elems(int m, int n) {                                           \
-    const long long k = fused::kmax_of(m, n);                                                  \
-    return (long long)fused::N_FULL_MATS * k * k;                                              \
+// The launch plan for compute type T (kind 0: full, 1: truncated): out[0]
+// blocks an update, out[1] the operators' tier (0 shared memory, 1
+// distributed shared memory, 2 device scratch), out[2] a block's dynamic
+// shared memory, out[3] the scratch elements of the launch; returns 1001 when
+// the kernels cannot take the shape.  The scratch entries are out[3].
+#define PLAN_ENTRIES(T, S)                                                                     \
+  int fused_plan(int kind, int B, int m, int n, int r, long long* out) {                       \
+    return plan_entry<T, S>(kind, B, m, n, r, out);                                            \
   }                                                                                            \
-  long long fused_trunc_scratch_elems(int m, int n, int r) {                                   \
-    const long long k = fused::kmax_of(r + 1, r + 1);                                          \
-    return (long long)fused::N_TRUNC_MATS * k * k + m + n;                                     \
+  long long fused_full_scratch_elems(int B, int m, int n) {                                    \
+    long long out[4];                                                                          \
+    plan_entry<T, S>(0, B, m, n, 0, out);                                                      \
+    return out[3];                                                                             \
+  }                                                                                            \
+  long long fused_trunc_scratch_elems(int B, int m, int n, int r) {                            \
+    long long out[4];                                                                          \
+    plan_entry<T, S>(1, B, m, n, r, out);                                                      \
+    return out[3];                                                                             \
   }

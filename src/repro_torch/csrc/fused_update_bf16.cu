@@ -5,6 +5,6 @@ extern "C" {
 
 FULL_ENTRY(fused_update_bf16, float, __nv_bfloat16)
 TRUNC_ENTRY(fused_update_truncated_bf16, float, __nv_bfloat16)
-SCRATCH_ENTRIES
+PLAN_ENTRIES(float, __nv_bfloat16)
 
 }  // extern "C"

@@ -5,6 +5,6 @@ extern "C" {
 
 FULL_ENTRY(fused_update_f16, float, __half)
 TRUNC_ENTRY(fused_update_truncated_f16, float, __half)
-SCRATCH_ENTRIES
+PLAN_ENTRIES(float, __half)
 
 }  // extern "C"

@@ -5,6 +5,6 @@ extern "C" {
 
 FULL_ENTRY(fused_update_f32, float, float)
 TRUNC_ENTRY(fused_update_truncated_f32, float, float)
-SCRATCH_ENTRIES
+PLAN_ENTRIES(float, float)
 
 }  // extern "C"

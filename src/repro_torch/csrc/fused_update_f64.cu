@@ -5,6 +5,6 @@ extern "C" {
 
 FULL_ENTRY(fused_update_f64, double, double)
 TRUNC_ENTRY(fused_update_truncated_f64, double, double)
-SCRATCH_ENTRIES
+PLAN_ENTRIES(double, double)
 
 }  // extern "C"

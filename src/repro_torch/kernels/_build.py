@@ -46,8 +46,9 @@ _SIGNATURES = {
     **{f"fused_update_{t}": {
         f"fused_update_{t}": ([_P] * 11 + [_I] * 3 + [_D] + [_I] * 3 + [_P], _I),
         f"fused_update_truncated_{t}": ([_P] * 9 + [_I] * 4 + [_D] + [_I] * 2 + [_P], _I),
-        "fused_full_scratch_elems": ([_I, _I], _LL),
-        "fused_trunc_scratch_elems": ([_I, _I, _I], _LL),
+        "fused_plan": ([_I] * 5 + [_P], _I),
+        "fused_full_scratch_elems": ([_I] * 3, _LL),
+        "fused_trunc_scratch_elems": ([_I] * 4, _LL),
     } for t in ("f32", "f64", "bf16", "f16")},
     "sparse_proj": {
         **{f"sparse_{kind}_{t}": ([_P] * 6 + [_I] * 6 + [_P], _I)

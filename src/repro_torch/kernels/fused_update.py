@@ -7,9 +7,9 @@ Counterpart of ``repro.kernels.fused_update``.  Two forms of one function:
   poles, tiny-z deflation, anchored secular solve (``secular_iterate``),
   Loewner zhat, scaled-Cauchy columns, a stable reorder, the structural-zero
   compression of the right-hand problem and the sign fix;
-* the hand-written CUDA kernels in ``csrc/fused_update.cuh`` (one thread block
-  per update), launched by ``fused_update_cuda`` /
-  ``fused_update_truncated_cuda``.
+* the hand-written CUDA kernels in ``csrc/fused_update.cuh`` (a thread-block
+  cluster per update; ``launch_plan`` says how a batch runs), launched by
+  ``fused_update_cuda`` / ``fused_update_truncated_cuda``.
 
 ``fused_update_batched`` / ``fused_update_truncated_batched`` choose by the
 device of the tensors they are given: CPU tensors take the plain body, CUDA
@@ -22,6 +22,7 @@ outputs are cast back; ``BF16_ERROR_BUDGET`` is the documented error budget.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -37,6 +38,7 @@ __all__ = [
     "fused_update_truncated_batched",
     "fused_update_cuda",
     "fused_update_truncated_cuda",
+    "launch_plan",
 ]
 
 # The reference's working-set budget for the fused body (a TPU core's VMEM
@@ -378,6 +380,45 @@ _SUFFIX = {  # (storage, compute) -> name suffix of the extern "C" entry
 }
 
 
+_ENTRY_POINTS: dict = {}
+
+
+def _entry(suffix: str, name: str):
+    """The entry point ``name`` of library ``fused_update_<suffix>``, looked up once."""
+    fn = _ENTRY_POINTS.get((suffix, name))
+    if fn is None:
+        fn = _ENTRY_POINTS[(suffix, name)] = getattr(_build.library(f"fused_update_{suffix}"), name)
+    return fn
+
+
+_TIERS = ("shared", "distributed shared", "scratch")
+_DEFAULT_RTOL = {dt: 64.0 * torch.finfo(dt).eps for dt in (torch.float32, torch.float64)}
+
+
+@functools.lru_cache(maxsize=512)
+def _scratch_elems(suffix: str, bsz: int, m: int, n: int, r: int | None) -> int:
+    """Scratch elements of a launch; raises for a shape the kernels cannot take."""
+    launch_plan(suffix, bsz, m, n, r)
+    if r is None:
+        return _entry(suffix, "fused_full_scratch_elems")(bsz, m, n)
+    return _entry(suffix, "fused_trunc_scratch_elems")(bsz, m, n, r)
+
+
+@functools.lru_cache(maxsize=512)
+def launch_plan(suffix: str, bsz: int, m: int, n: int, r: int | None = None) -> dict:
+    """How kernel A (``r=None``) or B runs ``bsz`` updates: blocks an update
+    (the cluster size), where the operators live, a block's shared memory and
+    the scratch elements.  Raises ``ValueError`` for a shape the kernels
+    cannot take (a block's vectors alone exceed its shared memory)."""
+    out = (ctypes.c_longlong * 4)()
+    err = _entry(suffix, "fused_plan")(0 if r is None else 1, bsz, m, n, r or 0, out)
+    if err:
+        raise ValueError(f"the fused kernels cannot take m={m} n={n} r={r}: a block's vectors "
+                         f"need {out[2]} bytes of shared memory")
+    return {"cluster": int(out[0]), "operators": _TIERS[out[1]], "smem_bytes": int(out[2]),
+            "scratch_elems": int(out[3])}
+
+
 def _kernel_args(u, s, v, a, b, compute_dtype, deflate_rtol):
     store = u.dtype
     cdt = compute_dtype if compute_dtype is not None else _compute_dtype_for(store)
@@ -390,17 +431,23 @@ def _kernel_args(u, s, v, a, b, compute_dtype, deflate_rtol):
         if not x.is_cuda or x.dtype != store or not x.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous CUDA {store} tensor; got "
                              f"{x.dtype} on {x.device}, contiguous={x.is_contiguous()}")
-    rtol = 64.0 * torch.finfo(cdt).eps if deflate_rtol is None else float(deflate_rtol)
+    rtol = _DEFAULT_RTOL[cdt] if deflate_rtol is None else float(deflate_rtol)
     return suffix, cdt, rtol
+
+
+def _scratch(suffix, cdt, device, bsz, m, n, r=None):
+    elems = _scratch_elems(suffix, bsz, m, n, r)
+    return torch.empty(elems, dtype=cdt, device=device) if elems else None
 
 
 def fused_update_cuda(u, s, v, a, b, *, sign_fix=True, deflate_rtol=None,
                       n_bisect=N_BISECT, n_newton=N_NEWTON, compute_dtype=None):
-    """Kernel A: B full updates, one thread block each.
+    """Kernel A: B full updates, a thread-block cluster each (``launch_plan``).
 
-    The launch is asynchronous on the current stream.  The scratch tensor may
-    be freed when this returns: PyTorch's caching allocator hands its memory
-    only to later work on the same stream, which runs after the kernel."""
+    The launch is asynchronous on the current stream.  A scratch tensor (only
+    where the operators do not fit in shared memory) may be freed when this
+    returns: PyTorch's caching allocator hands its memory only to later work
+    on the same stream, which runs after the kernel."""
     suffix, cdt, rtol = _kernel_args(u, s, v, a, b, compute_dtype, deflate_rtol)
     bsz, m, _ = u.shape
     n = v.shape[1]
@@ -408,21 +455,20 @@ def fused_update_cuda(u, s, v, a, b, *, sign_fix=True, deflate_rtol=None,
             or a.shape != (bsz, m) or b.shape != (bsz, n) or m > n:
         raise ValueError(f"bad full-update shapes u{tuple(u.shape)} s{tuple(s.shape)} "
                          f"v{tuple(v.shape)} a{tuple(a.shape)} b{tuple(b.shape)}")
-    lib = _build.library(f"fused_update_{suffix}")
-    scratch = torch.empty(bsz * lib.fused_full_scratch_elems(m, n), dtype=cdt, device=u.device)
+    scratch = _scratch(suffix, cdt, u.device, bsz, m, n)
     outs = [torch.empty_like(u), torch.empty_like(s), torch.empty_like(v),
             torch.empty_like(s), torch.empty_like(b)]
-    fn = getattr(lib, f"fused_update_{suffix}")
     _build.LAUNCHES["fused_update"] += 1
-    _build.check(fn(*_build.ptrs(u, s, v, a, b, *outs, scratch), bsz, m, n,
-                    ctypes.c_double(rtol), n_bisect, n_newton, int(sign_fix),
-                    _build.stream()), "fused_update")
+    _build.check(_entry(suffix, f"fused_update_{suffix}")(
+        u.data_ptr(), s.data_ptr(), v.data_ptr(), a.data_ptr(), b.data_ptr(),
+        *(o.data_ptr() for o in outs), 0 if scratch is None else scratch.data_ptr(), bsz, m, n,
+        rtol, n_bisect, n_newton, int(sign_fix), _build.stream()), "fused_update")
     return tuple(outs)
 
 
 def fused_update_truncated_cuda(u, s, v, a, b, *, deflate_rtol=None, n_bisect=N_BISECT,
                                 n_newton=N_NEWTON, compute_dtype=None):
-    """Kernel B: B Brand-truncated updates, one thread block each."""
+    """Kernel B: B Brand-truncated updates, a thread-block cluster each."""
     suffix, cdt, rtol = _kernel_args(u, s, v, a, b, compute_dtype, deflate_rtol)
     bsz, m, r = u.shape
     n = v.shape[1]
@@ -430,15 +476,13 @@ def fused_update_truncated_cuda(u, s, v, a, b, *, deflate_rtol=None, n_bisect=N_
             or b.shape != (bsz, n):
         raise ValueError(f"bad truncated-update shapes u{tuple(u.shape)} s{tuple(s.shape)} "
                          f"v{tuple(v.shape)} a{tuple(a.shape)} b{tuple(b.shape)}")
-    lib = _build.library(f"fused_update_{suffix}")
-    scratch = torch.empty(bsz * lib.fused_trunc_scratch_elems(m, n, r), dtype=cdt,
-                          device=u.device)
+    scratch = _scratch(suffix, cdt, u.device, bsz, m, n, r)
     outs = [torch.empty_like(u), torch.empty_like(s), torch.empty_like(v)]
-    fn = getattr(lib, f"fused_update_truncated_{suffix}")
     _build.LAUNCHES["fused_update_truncated"] += 1
-    _build.check(fn(*_build.ptrs(u, s, v, a, b, *outs, scratch), bsz, m, n, r,
-                    ctypes.c_double(rtol), n_bisect, n_newton, _build.stream()),
-                 "fused_update_truncated")
+    _build.check(_entry(suffix, f"fused_update_truncated_{suffix}")(
+        u.data_ptr(), s.data_ptr(), v.data_ptr(), a.data_ptr(), b.data_ptr(),
+        *(o.data_ptr() for o in outs), 0 if scratch is None else scratch.data_ptr(), bsz, m, n,
+        r, rtol, n_bisect, n_newton, _build.stream()), "fused_update_truncated")
     return tuple(outs)
 
 

@@ -131,6 +131,137 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         F.fused_update_cuda(*args, compute_dtype=torch.float32)
 
 
+# Kernels A and B as launched since the cluster redesign: every operator tier,
+# several cluster sizes, truncation ranks, 16-bit storage, two launches equal
+# to the bit, and the shapes they refuse.  f32 at (256, 320) is held to
+# chip_smoke.py's limits for that shape (its route decides its smallest
+# triplets by rounding; see chip_smoke.TOL), 16-bit storage to chip_smoke's
+# bf16 limits against the plain body on the same storage.
+FUSED_TOL_256 = (5e-2, 2e-3)
+FUSED_TOL_16BIT = (3e-3, 1e-2)
+
+
+def _suffix(dtype):
+    return F._SUFFIX[(dtype, F._compute_dtype_for(dtype))]
+
+
+def _full_args(rng, bsz, m, n, dtype, device):
+    return [t(np.stack(x), dtype, device) for x in zip(*[spectrum_problem(rng, m, n)
+                                                         for _ in range(bsz)])]
+
+
+def _trunc_args(rng, bsz, m, n, r, dtype, device):
+    return [t(np.stack(x), dtype, device) for x in zip(*[spectrum_problem(rng, m, n, r)
+                                                         for _ in range(bsz)])]
+
+
+@pytest.mark.parametrize("m,n,dtype,bsz,tier", [
+    (16, 16, torch.float64, 2, "distributed shared"),
+    (20, 21, torch.float64, 2, "distributed shared"),
+    (32, 48, torch.float64, 2, "distributed shared"),
+    (100, 150, torch.float64, 2, "distributed shared"),
+    (130, 200, torch.float64, 2, "scratch"),
+    (256, 320, torch.float32, 2, "scratch"),
+    (32, 48, torch.float64, 128, "shared"),
+    (256, 320, torch.float32, 32, "scratch"),
+])
+def test_fused_kernel_each_operator_tier(cuda_device, m, n, dtype, bsz, tier):
+    rng = np.random.default_rng(61)
+    args = _full_args(rng, bsz, m, n, dtype, cuda_device)
+    plan = F.launch_plan(_suffix(dtype), bsz, m, n)
+    assert plan["operators"] == tier
+    got = F.fused_update_cuda(*args)
+    torch.cuda.synchronize()
+    tol = FUSED_TOL_256 if (m, n) == (256, 320) else FUSED_TOL[dtype]
+    assert _within(_err(got, F._fused_body(*args)), tol)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+
+
+@pytest.mark.parametrize("bsz", [1, 3, 16, 33, 128])
+def test_fused_kernel_cluster_sizes(cuda_device, bsz):
+    rng = np.random.default_rng(62)
+    args = _full_args(rng, bsz, 32, 48, torch.float64, cuda_device)
+    plan = F.launch_plan("f64", bsz, 32, 48)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    c = plan["cluster"]
+    assert c in (1, 2, 4, 8) and (c == 1 or bsz * c <= sms)
+    assert (c == 1) == (2 * bsz > sms)
+    got = F.fused_update_cuda(*args)
+    torch.cuda.synchronize()
+    assert _within(_err(got, F._fused_body(*args)), FUSED_TOL[torch.float64])
+    targs = _trunc_args(rng, bsz, 64, 96, 8, torch.float64, cuda_device)
+    assert F.launch_plan("f64", bsz, 64, 96, 8)["cluster"] in (1, 2, 4, 8)
+    tgot = F.fused_update_truncated_cuda(*targs)
+    torch.cuda.synchronize()
+    assert _within(_err(tgot, F._fused_truncated_body(*targs)), FUSED_TOL[torch.float64])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", [1, 16, 32, 63])
+def test_fused_truncated_kernel_ranks(cuda_device, dtype, r):
+    rng = np.random.default_rng(63)
+    args = _trunc_args(rng, 4, 200, 300, r, dtype, cuda_device)
+    got = F.fused_update_truncated_cuda(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (4, 200, r) and got[2].shape == (4, 300, r)
+    assert _within(_err(got, F._fused_truncated_body(*args)), FUSED_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_kernels_16bit_storage(cuda_device, dtype):
+    rng = np.random.default_rng(64)
+    args = _full_args(rng, 8, 32, 48, dtype, cuda_device)
+    got = F.fused_update_cuda(*args)
+    targs = _trunc_args(rng, 8, 64, 96, 8, dtype, cuda_device)
+    tgot = F.fused_update_truncated_cuda(*targs)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and tgot[0].dtype == dtype
+    assert _within(_err(got, F._fused_body(*args)), FUSED_TOL_16BIT)
+    assert _within(_err(tgot, F._fused_truncated_body(*targs)), FUSED_TOL_16BIT)
+
+
+@pytest.mark.parametrize("case", ["A shared", "A distributed", "A scratch", "B r16", "B r63"])
+def test_fused_kernels_two_launches_equal_to_the_bit(cuda_device, case):
+    rng = np.random.default_rng(65)
+    if case.startswith("A"):
+        bsz, m, n, dt = {"A shared": (128, 32, 48, torch.float64),
+                         "A distributed": (2, 100, 150, torch.float64),
+                         "A scratch": (32, 256, 320, torch.float32)}[case]
+        args = _full_args(rng, bsz, m, n, dt, cuda_device)
+        fn = F.fused_update_cuda
+    else:
+        r = int(case[3:])
+        args = _trunc_args(rng, 16, 512, 768, r, torch.float32, cuda_device)
+        fn = F.fused_update_truncated_cuda
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_fused_kernels_refuse_what_they_cannot_take(cuda_device):
+    rng = np.random.default_rng(66)
+    # a block's vectors alone exceed its shared memory: refused, never run
+    big = _full_args(rng, 1, 600, 600, torch.float64, cuda_device)
+    before = _build.LAUNCHES["fused_update"]
+    with pytest.raises(ValueError, match="cannot take"):
+        F.fused_update_cuda(*big)
+    assert _build.LAUNCHES["fused_update"] == before
+    tbig = _trunc_args(rng, 1, 600, 700, 499, torch.float64, cuda_device)
+    with pytest.raises(ValueError, match="cannot take"):
+        F.fused_update_truncated_cuda(*tbig)
+    args = _full_args(rng, 2, 32, 48, torch.float64, cuda_device)
+    with pytest.raises(ValueError, match="shapes"):
+        F.fused_update_cuda(args[2], args[1], args[0], args[3], args[4])   # m > n
+    with pytest.raises(ValueError, match="shapes"):
+        F.fused_update_cuda(args[0], args[1][:, :-1].contiguous(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        F.fused_update_cuda(args[0].cpu(), *args[1:])
+    with pytest.raises(NotImplementedError):
+        F.fused_update_truncated_cuda(*[x.to(torch.float16) for x in
+                                        _trunc_args(rng, 2, 64, 96, 8, torch.float64, cuda_device)],
+                                      compute_dtype=torch.float64)
+
+
 def test_api_on_card_goes_through_kernels(cuda_device):
     rng = np.random.default_rng(48)
     probs = [svd_problem(rng, 16, 24) for _ in range(2)]
