@@ -41,9 +41,7 @@ result) when it fails:
    and the walk on the plain bucketing (a PyTorch stable sort and
    ``searchsorted``, the bucketing kernel F used to take); for A and B the
    profiler's device time, the host time, the blocks an update (the cluster
-   size) and, where the checkout can give them (``PARENT_SRC``), the
-   one-block-per-update kernels of commit e9a9ea2 timed in turns with them
-   (parent, kernel, kernel, parent); each drive end to end; and the FMM route
+   size); each drive end to end; and the FMM route
    against ``method="pallas"`` (kernel C) and ``direct`` at (1024, 1024).
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
@@ -52,7 +50,6 @@ The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import json
 import statistics
@@ -312,76 +309,6 @@ def fmm_inputs(seed: int = 3) -> dict:
     return {"i": full[0], "ii": full[1:], "iii": iii, "iv": iv, "v": v}
 
 
-# Kernels A and B of commit e9a9ea2 (one thread block per update, operators in
-# device scratch), timed beside the current ones in phase 4: their sources come
-# from ``$FUSED_PARENT_SRC``, else ``build/fused_phases/parent_src`` (where
-# tools/fused_phases.py leaves them), else ``git archive`` of the checkout's
-# history; without any of these the comparison is skipped and said so.
-PARENT = "e9a9ea2"
-PARENT_SRC = ROOT / "build" / "fused_phases" / "parent_src"
-_CHILDREN: list = []   # processes this script started, stopped when it ends
-
-
-def parent_sources() -> Path | None:
-    import os
-    import tarfile
-    import io
-
-    env = os.environ.get("FUSED_PARENT_SRC")
-    if env and (Path(env) / "fused_core.cuh").exists():
-        return Path(env)
-    if (PARENT_SRC / "fused_core.cuh").exists():
-        return PARENT_SRC
-    if (ROOT / ".git").exists():
-        got = subprocess.run(["git", "-C", str(ROOT), "archive", PARENT, "src/repro_torch/csrc"],
-                             capture_output=True)
-        if got.returncode == 0:
-            PARENT_SRC.mkdir(parents=True, exist_ok=True)
-            with tarfile.open(fileobj=io.BytesIO(got.stdout)) as tf:
-                for mem in tf.getmembers():
-                    if mem.isfile():
-                        (PARENT_SRC / Path(mem.name).name).write_bytes(tf.extractfile(mem).read())
-            return PARENT_SRC
-    return None
-
-
-def start_parent_build(src: Path, nvcc: str) -> dict:
-    """nvcc of the parent's f32, f64 and bf16 fused sources, started in the
-    background into build/parent_fused/: {suffix: (library, process)}."""
-    out = ROOT / "build" / "parent_fused"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for sfx in ("f32", "f64", "bf16"):
-        lib = out / f"libfused_update_{sfx}.so"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-o", str(lib), str(src / f"fused_update_{sfx}.cu")]
-        procs[sfx] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True))
-        _CHILDREN.append(procs[sfx][1])
-    return procs
-
-
-def parent_runners(procs: dict) -> dict:
-    """The parent's libraries once built: {suffix: CDLL}; a failed build is
-    logged and left out (the comparison is a reference point, not a check)."""
-    P, I, D, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
-    libs = {}
-    for sfx, (path, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            log(f"  parent {PARENT} fused_update_{sfx}: nvcc failed, not timed:\n{out[-2000:]}")
-            continue
-        lib = ctypes.CDLL(str(path))
-        getattr(lib, f"fused_update_{sfx}").argtypes = [P] * 11 + [I] * 3 + [D] + [I] * 3 + [P]
-        getattr(lib, f"fused_update_truncated_{sfx}").argtypes = [P] * 9 + [I] * 4 + [D] + [I] * 2 + [P]
-        lib.fused_full_scratch_elems.argtypes = [I, I]
-        lib.fused_trunc_scratch_elems.argtypes = [I, I, I]
-        lib.fused_full_scratch_elems.restype = LL
-        lib.fused_trunc_scratch_elems.restype = LL
-        libs[sfx] = lib
-    return libs
-
-
 def require(ok, what: str) -> None:
     """Fail the run (an explicit raise: asserts vanish under ``python -O``)."""
     if not ok:
@@ -420,8 +347,6 @@ def main() -> int:
 
     # -- phase 1: build ---------------------------------------------------------
     t_run = t0 = time.perf_counter()
-    parent_src = parent_sources()
-    parent_procs = start_parent_build(parent_src, _build._nvcc()) if parent_src else {}
     out_dir = _build.build_all()
     for name in _build.SOURCES:
         _build.library(name)
@@ -1191,37 +1116,6 @@ def main() -> int:
         t_b, t_o = nbytes / MEM_BYTES_PER_S, ops / peak
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
-    parent_libs = parent_runners(parent_procs)
-    if not parent_src:
-        log(f"  (the parent's kernels A and B, commit {PARENT}, are not in this checkout: "
-            f"not timed)")
-
-    def parent_call(kernel, args):
-        """A launch of the parent's kernel A or B on ``args``, or None."""
-        store = args[0].dtype
-        cdt = FU._compute_dtype_for(store)
-        sfx = FU._SUFFIX[(store, cdt)]
-        lib = parent_libs.get(sfx)
-        if lib is None:
-            return None
-        bsz, mm = args[0].shape[:2]
-        nn = args[2].shape[1]
-        rtol = ctypes.c_double(64.0 * torch.finfo(cdt).eps)
-        if kernel == "A":
-            scratch = torch.empty(bsz * lib.fused_full_scratch_elems(mm, nn), dtype=cdt, device=dev)
-            outs = [torch.empty_like(args[i]) for i in (0, 1, 2, 1, 4)]
-            fn = getattr(lib, f"fused_update_{sfx}")
-            return lambda: _build.check(fn(*(x.data_ptr() for x in (*args, *outs, scratch)), bsz, mm,
-                                           nn, rtol, N_BISECT, N_NEWTON, 1, _build.stream()),
-                                        "parent fused_update")
-        rr = args[0].shape[2]
-        scratch = torch.empty(bsz * lib.fused_trunc_scratch_elems(mm, nn, rr), dtype=cdt, device=dev)
-        outs = [torch.empty_like(args[i]) for i in (0, 1, 2)]
-        fn = getattr(lib, f"fused_update_truncated_{sfx}")
-        return lambda: _build.check(fn(*(x.data_ptr() for x in (*args, *outs, scratch)), bsz, mm, nn,
-                                       rr, rtol, N_BISECT, N_NEWTON, _build.stream()),
-                                    "parent fused_update_truncated")
-
     rows = []
     for key, (shape, args) in cases.items():
         kernel, dt = key[0], key[1]
@@ -1268,14 +1162,6 @@ def main() -> int:
             row["host_ms"] = host_ms(fn, n=20)
             extra = (f" (device {row['device_ms']:.4f}, host {row['host_ms']:.4f}; "
                      f"{plan['cluster']} blocks an update, operators in {plan['operators']} memory)")
-            pfn = parent_call(kernel, args)
-            if pfn is not None:   # in turns: parent, kernel (above and again), parent
-                p1 = time_ms(pfn)
-                row["ms_again"] = time_ms(fn)
-                p2 = time_ms(pfn)
-                row["parent_ms"] = [p1, p2]
-                extra += (f" | parent {PARENT} (one block an update) {p1:.3f} / {p2:.3f} ms, "
-                          f"kernel again {row['ms_again']:.3f} ms")
         log(f"  {kernel} {dt} {shape}: kernel {row['ms']:.3f} ms{extra} | plain {row['plain_ms']:.3f} ms "
             f"| torch.linalg.svd {lib_txt} ms | bound {b_ms:.4f} ms ({b_by})")
     f_rows = []
@@ -1434,7 +1320,7 @@ def main() -> int:
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                        **({k_: row[k_] for k_ in ("cluster", "device_ms", "host_ms", "parent_ms")
+                        **({k_: row[k_] for k_ in ("cluster", "device_ms", "host_ms")
                             if k_ in row}),
                         "shape": f"{row['dtype']} {row['shape']}"})
     # kernel F (with its bucketing) at the sketch's shape, as drive 2 gives it;
@@ -1477,11 +1363,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    try:
-        rc = main()
-    finally:
-        for proc in _CHILDREN:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    sys.exit(rc)
+    sys.exit(main())

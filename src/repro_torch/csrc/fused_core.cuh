@@ -15,9 +15,11 @@
 // cluster (kernel A), or one block alone (kernel B's core, which every block
 // of B's cluster computes for itself: the same code on the same inputs gives
 // the same bits).  Each block keeps every vector of the update in its own
-// shared memory.  Work on roots, poles and entries is cut into the team's
-// slices (Team::lo / hi); a slice's results reach the other blocks through
-// distributed shared memory (gather()).
+// shared memory; where they do not fit (kmax past about 300 in f64 or 590 in
+// f32), they live in a device scratch and the team is one block.  Work on
+// roots, poles and entries is cut into the team's slices (Team::lo / hi); a
+// slice's results reach the other blocks through distributed shared memory
+// (gather()).
 //
 // The chains.  The left and right chains are independent, so they run
 // together: every step of a phase (phase2()) takes both sides' problems,
@@ -31,10 +33,10 @@
 // slots fit beside its vectors (one block: shared memory; a cluster:
 // distributed shared memory), else in a device scratch the wrapper
 // allocates (the live set only: 5 slots).  Every read goes through a
-// generic pointer, so the same code serves the three places.  qt and the Householder hh of a phase
-// are never stored: phi = hh @ qt is formed entry by entry, each entry
-// walking only its row's group (hh is block diagonal; an entry sums the same
-// terms in the same order as the dense product).  The dense products (each
+// generic pointer, so the same code serves the three places.  qt and the
+// Householder hh of a phase are never stored: phi = hh @ qt is formed entry
+// by entry, each entry walking only its row's group (hh is block diagonal;
+// an entry sums the same terms in the same order as the dense product).  The dense products (each
 // side's G = phi1 @ flip2(phib), U @ G_u, V @ G_v, B's factor rotations) go
 // through gemm(): 64 x 64 output tiles shared out over the team, operands
 // staged through shared memory in 16-deep slices; f64 on the DMMA tensor
@@ -42,14 +44,16 @@
 // f32 with register-tiled FFMA (4 x 4 outputs a thread, summed in k order).
 //
 // The secular loop and the other per-root sums run on lane groups: a group
-// of g lanes (a power of two, chosen by a model of the sweep: lanes_for)
-// takes one root (or pole), its lanes take every g-th term (held in
-// registers when they are few), with several accumulators each, and a
-// butterfly shuffle adds the lanes.
+// of g lanes (a power of two, chosen by a model of the sweep for the whole
+// problem: lanes_for) takes one root (or pole), its lanes take every g-th
+// term (held in registers when they are few), with several accumulators
+// each, and a butterfly shuffle adds the lanes.
 //
 // All reductions run in a fixed order (warp butterflies, warps in order,
-// team blocks in rank order); no atomic decides a sum, so a launch gives the
-// same bits every time.
+// kernel B's Brand sums over fixed chunks of rows and a pairwise tree); no
+// atomic decides a sum, and no sum's order depends on the team's size or on
+// where a value is stored.  So a launch gives the same bits every time, and
+// an update the same bits at every batch size.
 #pragma once
 
 #include <cfloat>
@@ -73,6 +77,7 @@ constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int RED = 64;       // reduction buffer, in elements of T
 constexpr int MAXC = 8;       // the largest cluster: the portable limit
+constexpr int NCHUNK = MAXC;  // kernel B's Brand sums: fixed chunks of the rows
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMEM_MAX = 232448;  // a block's shared memory on Hopper (227 KB)
 
@@ -159,17 +164,25 @@ __host__ __device__ inline int rows_per(int kc, int csz) { return (kc + csz - 1)
 __host__ __device__ inline long ops_elems(int kc, int csz) {
   return (long)N_OPS * rows_per(kc, csz) * kc;
 }
+// The vectors of one context in device scratch, in elements of T: the int
+// slots follow the T slots (an int per element: no narrower than T).
+__host__ __device__ inline long vec_elems(int kmax) {
+  return (long)(N_VEC_SLOTS + N_INT_SLOTS) * kmax;
+}
 
 struct Layout {
   size_t ptrs, red, xchg, vecs, ints, stage, ops, total;
 };
 
 // Byte offsets in a block's dynamic shared memory: the team's operator base
-// pointers, the reduction buffer, the exchange buffer, the vectors (kmax
-// elements a slot), the gemm staging and, when they fit, this block's rows of
-// the operators (kc columns, Ops::rows rows a slot).
+// pointers, the reduction buffer, ``xchg`` elements read by the other blocks
+// of a cluster (kernel B's Brand sums), the vectors (kmax elements a slot)
+// when they fit (``vecs_in_smem``; else they live in device scratch), the
+// gemm staging and, when they fit, this block's rows of the operators (kc
+// columns, Ops::rows rows a slot).
 template <typename T>
-__host__ __device__ inline Layout layout(int kmax, int kc, int csz, bool ops_in_smem) {
+__host__ __device__ inline Layout layout(int kmax, int kc, int csz, bool ops_in_smem,
+                                         bool vecs_in_smem = true, size_t xchg = 0) {
   Layout L;
   size_t o = 0;
   L.ptrs = o;
@@ -177,11 +190,11 @@ __host__ __device__ inline Layout layout(int kmax, int kc, int csz, bool ops_in_
   L.red = o;
   o += RED * sizeof(T);
   L.xchg = o;
-  o += (2 * (size_t)kmax + 8) * sizeof(T);
+  o += xchg * sizeof(T);
   L.vecs = o;
-  o += (size_t)N_VEC_SLOTS * kmax * sizeof(T);
+  if (vecs_in_smem) o += (size_t)N_VEC_SLOTS * kmax * sizeof(T);
   L.ints = o;
-  o += (size_t)N_INT_SLOTS * kmax * sizeof(int);
+  if (vecs_in_smem) o += (size_t)N_INT_SLOTS * kmax * sizeof(int);
   o = (o + 15) & ~(size_t)15;
   L.stage = o;
   o += (size_t)STAGE_ELEMS * sizeof(T);
@@ -228,9 +241,9 @@ struct Ops {
 template <typename T>
 struct Ctx {
   T* red;      // RED elements
-  T* xchg;     // 2 kmax + 8 elements, read by the other blocks of a cluster
-  T* vecs;     // N_VEC_SLOTS * kmax
-  int* ints;   // N_INT_SLOTS * kmax
+  T* xchg;     // read by the other blocks of a cluster
+  T* vecs;     // N_VEC_SLOTS * kmax, in shared memory or in device scratch
+  int* ints;   // N_INT_SLOTS * kmax, beside them
   T* stage;    // STAGE_ELEMS
   Ops<T> ops;
   Team team;
@@ -244,15 +257,19 @@ struct Ctx {
 // A context on this block's shared memory.  ``ops_scratch``: the update's
 // operators in device scratch (N_OPS flat (kc, kc) slots), or null when they
 // live in shared memory (one block: flat; a cluster: each block its rows).
+// ``vec_scratch``: the vectors in device scratch (vec_elems(kmax); a team of
+// one block only, since gather() reads the other blocks' shared memory), or
+// null when they live in shared memory.
 template <typename T>
 __device__ Ctx<T> make_ctx(unsigned char* smem, const Layout& L, const Team& team, int kmax,
-                           int kc, T* ops_scratch, double rtol, int nb, int nn) {
+                           int kc, T* ops_scratch, T* vec_scratch, double rtol, int nb, int nn) {
   Ctx<T> c;
   T** ptrs = reinterpret_cast<T**>(smem + L.ptrs);
   c.red = reinterpret_cast<T*>(smem + L.red);
   c.xchg = reinterpret_cast<T*>(smem + L.xchg);
-  c.vecs = reinterpret_cast<T*>(smem + L.vecs);
-  c.ints = reinterpret_cast<int*>(smem + L.ints);
+  c.vecs = vec_scratch ? vec_scratch : reinterpret_cast<T*>(smem + L.vecs);
+  c.ints = vec_scratch ? reinterpret_cast<int*>(vec_scratch + (long)N_VEC_SLOTS * kmax)
+                       : reinterpret_cast<int*>(smem + L.ints);
   c.stage = reinterpret_cast<T*>(smem + L.stage);
   c.ops.flat = team.size == 1 || ops_scratch != nullptr;
   c.ops.base0 = ops_scratch ? ops_scratch : reinterpret_cast<T*>(smem + L.ops);
@@ -325,8 +342,13 @@ __device__ __forceinline__ T gmin(T v, int g) {
 // term held in registers (200 read from shared memory) + 50 a butterfly
 // level, and at least a cycle for each term it computes (the division's
 // throughput).  lanes_for() takes the cheapest g.  A lane's terms are held in
-// registers when they are at most RMAX.
+// registers when they are at most RMAX.  From KBIG terms on the model favours
+// wide groups, whose butterflies and rounds cost more than it counts: there g
+// is GBIG, the fastest or within 13 % of the fastest in every case timed on
+// the card (tools/fused_lanes.py: kernel A at (100, 150) to (256, 320), one
+// to eight blocks an update, f32 and f64).
 constexpr int RMAX = 10;
+constexpr int KBIG = 48, GBIG = 8;
 struct Lanes {
   int g, ng, gid, gl;
 };
@@ -339,6 +361,10 @@ __device__ inline float sweep_cost(int items, int k, int g) {
   return rounds * (lat > thr ? lat : thr);
 }
 __device__ inline float best_cost(int items, int k, int* best_g = nullptr) {
+  if (k >= KBIG) {
+    if (best_g) *best_g = GBIG;
+    return items > 0 ? sweep_cost(items, k, GBIG) : 0.f;
+  }
   float bc = 3.4e38f;
   for (int g = 1; g <= 32; g <<= 1) {
     const float c = sweep_cost(items, k, g);
@@ -449,6 +475,60 @@ __device__ void colsum(int lo, int hi, int L, F term, T* y, T* wp) {
       T s = wp[lane];
       for (int q = 1; q < NWARPS; ++q) s += wp[q * 32 + lane];
       y[i0 + lane] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// Pairwise tree over p[0, n), n a power of two <= N: ((p0 + p1) + (p2 + p3))
+// + ...; the result in p[0].  A tree over aligned runs of leaves, completed by
+// a tree over the runs' sums, is the same tree.
+template <int N, typename T>
+__device__ __forceinline__ T tree_sum(T (&p)[N], int n) {
+#pragma unroll
+  for (int s = 1; s < N; s <<= 1)
+#pragma unroll
+    for (int q = 0; q + s < N; q += 2 * s)
+      if (s < n) p[q] = p[q] + p[q + s];
+  return p[0];
+}
+
+// Sums over L rows that do not depend on how many blocks share them (kernel
+// B's Brand projections and residual norms): the rows are cut into NCHUNK
+// chunks (chunk t: rows [L t / NCHUNK, L (t + 1) / NCHUNK)), a chunk's sum
+// formed as colsum() forms it (warp w its eighth of the chunk's rows in
+// order, the warps added in order), and the chunks added by tree_sum().  This
+// block takes the aligned chunks [t0, t0 + nch) (nch a power of two) and
+// y[i] = its subtree of sum_l term(l, i), i < N (l the row's index in
+// [0, L)); the cluster completes the tree over its blocks' y in rank order.
+// ``wp``: nch * NWARPS * 32 elements.
+template <typename T, typename F>
+__device__ void chunk_sum(int L, int t0, int nch, int N, F term, T* y, T* wp) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int i0 = 0; i0 < N; i0 += 32) {
+    const int i = i0 + lane < N ? i0 + lane : 0;
+    for (int q = 0; q < nch; ++q) {
+      const int c0 = (int)((long)L * (t0 + q) / NCHUNK);
+      const int len = (int)((long)L * (t0 + q + 1) / NCHUNK) - c0;
+      const int l0 = c0 + (int)((long)len * w / NWARPS), l1 = c0 + (int)((long)len * (w + 1) / NWARPS);
+      T acc = T(0);
+#pragma unroll 4
+      for (int l = l0; l < l1; ++l) acc += term(l, i);
+      wp[(q * NWARPS + w) * 32 + lane] = acc;
+    }
+    __syncthreads();
+    if (threadIdx.x < 32 && i0 + lane < N) {
+      T p[NCHUNK];
+#pragma unroll
+      for (int q = 0; q < NCHUNK; ++q) {
+        T s = T(0);
+        if (q < nch) {
+          s = wp[q * NWARPS * 32 + lane];
+          for (int v = 1; v < NWARPS; ++v) s += wp[(q * NWARPS + v) * 32 + lane];
+        }
+        p[q] = s;
+      }
+      y[i0 + lane] = tree_sum(p, nch);
     }
     __syncthreads();
   }
@@ -858,13 +938,17 @@ __device__ void phase2(const Prob<T> (&pr)[2], const Ctx<T>& c) {
   // problems, a lane group each.  Item t: problem b = t >= n0.  The two
   // problems' roots share the lane groups when the sweep model says that is
   // cheaper than one problem after the other (segments [0, n0) and [n0, nt)).
+  // The groups' size and the register path are chosen for the whole
+  // problems, not for this block's slice, so that a root's sums are the same
+  // whatever the team's size: an update gives the same bits at every batch
+  // size.
   const int lo0 = tm.lo(kk[0]), lo1 = tm.lo(kk[1]);
   const int n0 = tm.hi(kk[0]) - lo0, nt = n0 + tm.hi(kk[1]) - lo1;
-  const bool together = best_cost(nt, kx) <= best_cost(n0, kk[0]) + best_cost(nt - n0, kk[1]);
+  const bool together = best_cost(nall, kx) <= best_cost(kk[0], kk[0]) + best_cost(kk[1], kk[1]);
   const int nseg = together ? 1 : 2;
   const int seg_lo[2] = {0, together ? nt : n0}, seg_hi[2] = {together ? nt : n0, nt};
-  const Lanes seg_l[2] = {together ? lanes_for(nt, kx) : lanes_for(n0, kk[0]),
-                          lanes_for(nt - n0, kk[1])};
+  const Lanes seg_l[2] = {together ? lanes_for(nall, kx) : lanes_for(kk[0], kk[0]),
+                          lanes_for(kk[1], kk[1])};
   const int seg_k[2] = {together ? kx : kk[0], kk[1]};
   const T big = Lim<T>::max() * T(0.25);
   for (int sg = 0; sg < nseg; ++sg) {

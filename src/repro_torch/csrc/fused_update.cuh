@@ -35,14 +35,19 @@
 // own shared memory), else in a scratch of the live set (1.3 MB an update at
 // (256, 320) f32, so a B32 batch stays in L2), the left and right chains
 // solved together, products tiled through shared memory, f64 on the DMMA
-// tensor cores.  Kernel B splits the
-// Brand projections and residuals (reduced over the cluster in rank order
-// through distributed shared memory) and the factor rotations ([U p] @ G_u,
-// by row slices), reading its rows of U and V once into shared memory where
-// they fit and keeping their residuals there; every block computes the
-// (r + 1) core itself on the implicit identity basis (no eye @ G product), so
-// no block waits on another for it and all hold the same bits.  The secular
-// roots run a lane group each.  No TF32, no library GEMM.
+// tensor cores.  Where even a block's vectors do not fit in shared memory
+// (kmax past about 300 in f64), they go to the scratch as well and the update
+// runs on one block: every shape the fused gate passes runs.  Kernel B splits
+// the Brand projections and residuals (over eight fixed chunks of rows, added
+// by a pairwise tree whose top levels run over the cluster's blocks through
+// distributed shared memory, so the sums do not depend on the cluster's size)
+// and the factor rotations ([U p] @ G_u, by row slices), reading its rows of
+// U and V once into shared memory where they fit and keeping their residuals
+// there; every block computes the (r + 1) core itself on the implicit
+// identity basis (no eye @ G product), so no block waits on another for it
+// and all hold the same bits.  The secular roots run a lane group each, its
+// size chosen for the whole problem.  An update gives the same bits at every
+// batch size.  No TF32, no library GEMM.
 //
 // Storage types: float and double compute in their own type; bf16 and f16
 // storage is read, upcast to float on load (as the TPU kernel upcasts after
@@ -60,18 +65,28 @@ using fused::Ctx;
 using fused::Team;
 using fused::THREADS;
 
+// The kernels' flags: the operators in shared memory, the vectors in device
+// scratch (a block of its own an update), and kernel B's residuals in device
+// scratch and its rows of U and V cached in shared memory.
+constexpr int OPS_SMEM = 1, VECS_SCRATCH = 2, B_PERP_SCRATCH = 4, B_CACHE_ROWS = 8;
+
 template <typename T, typename S>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_update_kernel(const S* u, const S* s, const S* v, const S* a, const S* b, S* uo, S* so,
                     S* vo, S* dlo, S* dro, T* scratch, int m, int n, double rtol, int nb,
-                    int nn, int sign_fix, int csz, int ops_in_smem) {
+                    int nn, int sign_fix, int csz, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long i = blockIdx.x / csz;
   const Team tm{(int)(blockIdx.x % csz), csz};
   const int kmax = fused::kmax_of(m, n), kc = fused::chain_k(m, n);
-  const fused::Layout L = fused::layout<T>(kmax, kc, csz, ops_in_smem != 0);
-  T* ops_mem = ops_in_smem ? nullptr : scratch + i * fused::N_OPS * kc * kc;
-  Ctx<T> c = fused::make_ctx<T>(smem, L, tm, kmax, kc, ops_mem, rtol, nb, nn);
+  const bool ops_in_smem = flags & OPS_SMEM, vecs_in_smem = !(flags & VECS_SCRATCH);
+  const fused::Layout L = fused::layout<T>(kmax, kc, csz, ops_in_smem, vecs_in_smem);
+  // an update's scratch: its operators (N_OPS (kc, kc) slots), then its vectors
+  T* mine = scratch + i * ((ops_in_smem ? 0 : fused::N_OPS * (long)kc * kc) +
+                           (vecs_in_smem ? 0 : fused::vec_elems(kmax)));
+  T* ops_mem = ops_in_smem ? nullptr : mine;
+  T* vec_mem = vecs_in_smem ? nullptr : mine + (ops_in_smem ? 0 : fused::N_OPS * (long)kc * kc);
+  Ctx<T> c = fused::make_ctx<T>(smem, L, tm, kmax, kc, ops_mem, vec_mem, rtol, nb, nn);
   FUSED_MARK_START();
   const long mm = (long)m * m, nn2 = (long)n * n;
   fused::full_core<T, S, S, false>(m, n, u + i * mm, s + i * m, v + i * nn2, a + i * m,
@@ -79,8 +94,10 @@ fused_update_kernel(const S* u, const S* s, const S* v, const S* a, const S* b, 
                                    dro + i * n, sign_fix != 0, c);
 }
 
-// Kernel B's flags, and where its residuals and cached rows start.
-constexpr int B_OPS_SMEM = 1, B_PERP_SCRATCH = 2, B_CACHE_ROWS = 4;
+// Kernel B's exchange: a block's subtree of the Brand sums (U^T a, V^T b and
+// the two residual norms), read by the other blocks of its cluster.
+__host__ __device__ inline size_t trunc_xchg(int r) { return 2 * (size_t)r + 2; }
+// Where kernel B's residuals and cached rows start.
 __host__ __device__ inline size_t trunc_extra_offset(const fused::Layout& L) {
   return (L.total + 15) & ~(size_t)15;
 }
@@ -96,19 +113,24 @@ fused_update_truncated_kernel(const S* u, const S* s, const S* v, const S* a, co
   const Team one{0, 1};                          // the core: every block computes it
   const int k = r + 1;
   const int tid = threadIdx.x;
-  const bool ops_in_smem = flags & B_OPS_SMEM, cache_rows = flags & B_CACHE_ROWS;
-  const fused::Layout L = fused::layout<T>(k, k, 1, ops_in_smem);
+  const bool ops_in_smem = flags & OPS_SMEM, cache_rows = flags & B_CACHE_ROWS;
+  const bool vecs_in_smem = !(flags & VECS_SCRATCH);
+  const fused::Layout L = fused::layout<T>(k, k, 1, ops_in_smem, vecs_in_smem, trunc_xchg(r));
   const int ulo = cl.lo(m), uhi = cl.hi(m), vlo = cl.lo(n), vhi = cl.hi(n);
   // after the core's layout: the residuals of this block's rows (a_perp,
   // b_perp), then (cache_rows) its rows of U and V; in the scratch: the
   // residuals of every update (B_PERP_SCRATCH), then each block's operators
+  // and vectors
   T* sp = reinterpret_cast<T*>(smem + trunc_extra_offset(L));
   T* perp_a = flags & B_PERP_SCRATCH ? scratch + bi * (m + n) : sp - ulo;
   T* perp_b = flags & B_PERP_SCRATCH ? scratch + bi * (m + n) + m : sp + (uhi - ulo) - vlo;
-  T* ops_mem = ops_in_smem ? nullptr
-                           : scratch + (flags & B_PERP_SCRATCH ? (long)gridDim.x / csz * (m + n) : 0) +
-                                 (long)blockIdx.x * fused::ops_elems(k, 1);
-  Ctx<T> c = fused::make_ctx<T>(smem, L, one, k, k, ops_mem, rtol, nb, nn);
+  const long per_block = (ops_in_smem ? 0 : fused::ops_elems(k, 1)) +
+                         (vecs_in_smem ? 0 : fused::vec_elems(k));
+  T* mine = scratch + (flags & B_PERP_SCRATCH ? (long)gridDim.x / csz * (m + n) : 0) +
+            (long)blockIdx.x * per_block;
+  T* ops_mem = ops_in_smem ? nullptr : mine;
+  T* vec_mem = vecs_in_smem ? nullptr : mine + (ops_in_smem ? 0 : fused::ops_elems(k, 1));
+  Ctx<T> c = fused::make_ctx<T>(smem, L, one, k, k, ops_mem, vec_mem, rtol, nb, nn);
   FUSED_MARK_START();
   u += bi * m * (long)r;
   v += bi * n * (long)r;
@@ -123,7 +145,11 @@ fused_update_truncated_kernel(const S* u, const S* s, const S* v, const S* a, co
   T* saug = c.v(fused::T_SAUG);
   T* ak = c.v(fused::T_AK);
   T* bk = c.v(fused::T_BK);
-  T* part = c.xchg;  // [0, r): U^T a over this block's rows, [r, 2r): V^T b, then |a_perp|^2, |b_perp|^2
+  // this block's subtree of the Brand sums: [0, r) U^T a, [r, 2r) V^T b, then
+  // |a_perp|^2 and |b_perp|^2 (fused::chunk_sum: the same bits at every
+  // cluster size)
+  T* part = c.xchg;
+  const int cpb = fused::NCHUNK / csz, t0 = cl.rank * cpb;
 
   // this block's rows of U and V: read once into shared memory when they fit
   // beside the core (every later pass reads them there), else read in place
@@ -142,20 +168,23 @@ fused_update_truncated_kernel(const S* u, const S* s, const S* v, const S* a, co
   auto vat = [&](int i, int l) {
     return cache_rows ? sv[(long)(i - vlo) * r + l] : fused::ld<T>(v, (long)i * r + l);
   };
+  // the cluster's tree over its blocks' subtrees, in rank order
+  auto cluster_sum = [&](int l) {
+    T p[fused::MAXC];
+#pragma unroll
+    for (int q = 0; q < fused::MAXC; ++q) p[q] = q < csz ? cl.map(part, q)[l] : T(0);
+    return fused::tree_sum(p, csz);
+  };
 
-  // Brand: project a and b off the bases, over this block's rows
-  fused::colsum<T>(0, r, uhi - ulo,
-                   [&](int l, int j) { return uat(ulo + l, j) * fused::ld<T>(a, ulo + l); },
-                   part, c.stage);
-  fused::colsum<T>(0, r, vhi - vlo,
-                   [&](int l, int j) { return vat(vlo + l, j) * fused::ld<T>(b, vlo + l); },
-                   part + r, c.stage);
+  // Brand: project a and b off the bases, over this block's chunks of rows
+  fused::chunk_sum<T>(m, t0, cpb, r, [&](int l, int j) { return uat(l, j) * fused::ld<T>(a, l); },
+                      part, c.stage);
+  fused::chunk_sum<T>(n, t0, cpb, r, [&](int l, int j) { return vat(l, j) * fused::ld<T>(b, l); },
+                      part + r, c.stage);
   cl.sync();
-  // every block adds the cluster's partial sums in rank order: the same bits
   for (int l = tid; l < 2 * r; l += THREADS) {
-    T acc = T(0);
-    for (int q = 0; q < csz; ++q) acc += cl.map(part, q)[l];
-    if (l < r) pvec[l] = acc; else qvec[l - r] = acc;
+    const T x = cluster_sum(l);
+    if (l < r) pvec[l] = x; else qvec[l - r] = x;
   }
   __syncthreads();
   // residuals of this block's rows, and their squared norms
@@ -164,22 +193,12 @@ fused_update_truncated_kernel(const S* u, const S* s, const S* v, const S* a, co
   fused::rowsum<T>(vlo, vhi, r, [&](int i, int l) { return vat(i, l) * qvec[l]; },
                    [&](int i, T x) { perp_b[i] = fused::ld<T>(b, i) - x; });
   __syncthreads();
-  T na = T(0), nbb = T(0);
-  for (int i = ulo + tid; i < uhi; i += THREADS) na += perp_a[i] * perp_a[i];
-  for (int i = vlo + tid; i < vhi; i += THREADS) nbb += perp_b[i] * perp_b[i];
-  na = fused::block_reduce(na, c.red, fused::SumOp());
-  nbb = fused::block_reduce(nbb, c.red, fused::SumOp());
-  if (tid == 0) {
-    part[2 * r] = na;
-    part[2 * r + 1] = nbb;
-  }
+  fused::chunk_sum<T>(m, t0, cpb, 1, [&](int l, int) { return perp_a[l] * perp_a[l]; },
+                      part + 2 * r, c.stage);
+  fused::chunk_sum<T>(n, t0, cpb, 1, [&](int l, int) { return perp_b[l] * perp_b[l]; },
+                      part + 2 * r + 1, c.stage);
   cl.sync();
-  T ra2 = T(0), rb2 = T(0);
-  for (int q = 0; q < csz; ++q) {
-    const T* pq = cl.map(part, q);
-    ra2 += pq[2 * r];
-    rb2 += pq[2 * r + 1];
-  }
+  const T ra2 = cluster_sum(2 * r), rb2 = cluster_sum(2 * r + 1);
   cl.sync();  // every block has read the others' partial sums
   T ra = fused::m_sqrt(ra2), rb = fused::m_sqrt(rb2);
   const bool ok_a = ra > T(1e-12), ok_b = rb > T(1e-12);
@@ -234,12 +253,13 @@ inline int card_sms() {
 
 // How a launch runs: blocks per update, where the operators live (0: shared
 // memory, 1: distributed shared memory, 2: device scratch), the dynamic
-// shared memory of a block and the scratch elements of the launch.
+// shared memory of a block, the scratch elements of the launch and the
+// kernel's flags.
 struct Plan {
   int csz, tier;
   size_t smem;
   long long scratch;
-  int flags;   // kernel B: B_OPS_SMEM | B_PERP_SCRATCH | B_CACHE_ROWS
+  int flags;   // OPS_SMEM | VECS_SCRATCH | B_PERP_SCRATCH | B_CACHE_ROWS
 };
 
 constexpr int ERR_TOO_LARGE = 1001;  // a shape the kernels cannot take
@@ -307,39 +327,61 @@ bool choose(Kern kern, int B, Plan& p, Place place) {
   return place(1, p);
 }
 
+// Kernel A: the operators in shared memory where they fit beside the
+// vectors (one block: its own; a cluster: distributed), else in device
+// scratch; where even the vectors do not fit, they go to the scratch too and
+// the update runs on one block (gather() reads the team's shared memory).
 template <typename T, typename S>
 bool full_plan(int B, int m, int n, Plan& p) {
   const int kmax = fused::kmax_of(m, n), kc = fused::chain_k(m, n);
   return choose(fused_update_kernel<T, S>, B, p, [&](int c, Plan& q) {
+    const size_t cap = fused::SMEM_MAX;
     q.csz = c;
-    const size_t in = fused::layout<T>(kmax, kc, c, true).total;
-    if (in <= (size_t)fused::SMEM_MAX) {
+    q.smem = fused::layout<T>(kmax, kc, c, true).total;
+    if (q.smem <= cap) {
       q.tier = c > 1 ? 1 : 0;
-      q.smem = in;
       q.scratch = 0;
-      q.flags = 0;
+      q.flags = OPS_SMEM;
       return true;
     }
     q.tier = 2;
+    q.scratch = (long long)B * fused::N_OPS * kc * kc;
     q.flags = 0;
     q.smem = fused::layout<T>(kmax, kc, c, false).total;
-    q.scratch = (long long)B * fused::N_OPS * kc * kc;
-    return q.smem <= (size_t)fused::SMEM_MAX;
+    if (q.smem <= cap) return true;
+    if (c > 1) return false;
+    q.flags = VECS_SCRATCH;
+    q.scratch += (long long)B * fused::vec_elems(kmax);
+    q.smem = fused::layout<T>(kmax, kc, 1, false, false).total;
+    return q.smem <= cap;
   });
 }
 
+// Kernel B: the core's operators and vectors in shared memory where they fit
+// (each block computes the core alone), else in device scratch (each block's
+// own); then the residuals of the block's rows and, where they fit too, its
+// rows of U and V.
 template <typename T, typename S>
 bool trunc_plan(int B, int m, int n, int r, Plan& p) {
   const int k = r + 1;
   return choose(fused_update_truncated_kernel<T, S>, B, p, [&](int c, Plan& q) {
-    const size_t cap = fused::SMEM_MAX;
+    const size_t cap = fused::SMEM_MAX, xc = trunc_xchg(r);
     q.csz = c;
-    const fused::Layout in = fused::layout<T>(k, k, 1, true);
-    q.tier = in.total <= cap ? 0 : 2;
-    q.flags = q.tier == 0 ? B_OPS_SMEM : 0;
-    const size_t base = trunc_extra_offset(fused::layout<T>(k, k, 1, q.tier == 0));
+    q.tier = 0;
+    q.flags = OPS_SMEM;
+    q.scratch = 0;
+    if (fused::layout<T>(k, k, 1, true, true, xc).total > cap) {
+      q.tier = 2;
+      q.flags = 0;
+      q.scratch = (long long)B * c * fused::ops_elems(k, 1);
+      if (fused::layout<T>(k, k, 1, false, true, xc).total > cap) {
+        q.flags = VECS_SCRATCH;
+        q.scratch += (long long)B * c * fused::vec_elems(k);
+      }
+    }
+    const size_t base = trunc_extra_offset(
+        fused::layout<T>(k, k, 1, q.flags & OPS_SMEM, !(q.flags & VECS_SCRATCH), xc));
     const size_t rows = (size_t)((m + c - 1) / c + (n + c - 1) / c);
-    q.scratch = q.tier == 0 ? 0 : (long long)B * c * fused::ops_elems(k, 1);
     q.smem = base + rows * sizeof(T);
     if (q.smem > cap) {
       q.flags |= B_PERP_SCRATCH;
@@ -373,7 +415,7 @@ int launch_full(const void* u, const void* s, const void* v, const void* a, cons
   return launch_cluster(fused_update_kernel<T, S>, B * p.csz, p, stream, (const S*)u,
                         (const S*)s, (const S*)v, (const S*)a, (const S*)b, (S*)uo, (S*)so,
                         (S*)vo, (S*)dlo, (S*)dro, (T*)scratch, m, n, rtol, nb, nn, sign_fix,
-                        p.csz, p.tier < 2 ? 1 : 0);
+                        p.csz, p.flags);
 }
 
 template <typename T, typename S>
@@ -396,6 +438,7 @@ int plan_entry(int kind, int B, int m, int n, int r, long long* out) {
   out[1] = p.tier;
   out[2] = (long long)p.smem;
   out[3] = p.scratch;
+  out[4] = (p.flags & VECS_SCRATCH) != 0;
   return ok ? 0 : ERR_TOO_LARGE;
 }
 
@@ -419,19 +462,20 @@ int plan_entry(int kind, int B, int m, int n, int r, long long* out) {
 // The launch plan for compute type T (kind 0: full, 1: truncated): out[0]
 // blocks an update, out[1] the operators' tier (0 shared memory, 1
 // distributed shared memory, 2 device scratch), out[2] a block's dynamic
-// shared memory, out[3] the scratch elements of the launch; returns 1001 when
-// the kernels cannot take the shape.  The scratch entries are out[3].
+// shared memory, out[3] the scratch elements of the launch, out[4] 1 when the
+// vectors live in the scratch too; returns 1001 when the kernels cannot take
+// the shape.  The scratch entries are out[3].
 #define PLAN_ENTRIES(T, S)                                                                     \
   int fused_plan(int kind, int B, int m, int n, int r, long long* out) {                       \
     return plan_entry<T, S>(kind, B, m, n, r, out);                                            \
   }                                                                                            \
   long long fused_full_scratch_elems(int B, int m, int n) {                                    \
-    long long out[4];                                                                          \
+    long long out[5];                                                                          \
     plan_entry<T, S>(0, B, m, n, 0, out);                                                      \
     return out[3];                                                                             \
   }                                                                                            \
   long long fused_trunc_scratch_elems(int B, int m, int n, int r) {                            \
-    long long out[4];                                                                          \
+    long long out[5];                                                                          \
     plan_entry<T, S>(1, B, m, n, r, out);                                                      \
     return out[3];                                                                             \
   }

@@ -2,7 +2,8 @@
 
 cauchy_matmul   on-the-fly Cauchy product (csrc/cauchy_matmul.cu, kernel C)
 fused_update    the whole rank-1 update, full (kernel A) and truncated
-                (kernel B), one thread block per update (csrc/fused_update.cuh)
+                (kernel B), a thread-block cluster per update
+                (csrc/fused_update.cuh)
 sparse_proj     COO projection S @ mat: the entries bucketed by destination
                 row on the card, one lane group per row (csrc/sparse_proj.cu,
                 kernel F)

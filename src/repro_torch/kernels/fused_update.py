@@ -407,15 +407,17 @@ def _scratch_elems(suffix: str, bsz: int, m: int, n: int, r: int | None) -> int:
 @functools.lru_cache(maxsize=512)
 def launch_plan(suffix: str, bsz: int, m: int, n: int, r: int | None = None) -> dict:
     """How kernel A (``r=None``) or B runs ``bsz`` updates: blocks an update
-    (the cluster size), where the operators live, a block's shared memory and
-    the scratch elements.  Raises ``ValueError`` for a shape the kernels
-    cannot take (a block's vectors alone exceed its shared memory)."""
-    out = (ctypes.c_longlong * 4)()
+    (the cluster size), where the operators and the vectors live, a block's
+    shared memory and the scratch elements.  Raises ``ValueError`` for a shape
+    the kernels cannot take (what a block must keep in shared memory exceeds
+    it)."""
+    out = (ctypes.c_longlong * 5)()
     err = _entry(suffix, "fused_plan")(0 if r is None else 1, bsz, m, n, r or 0, out)
     if err:
-        raise ValueError(f"the fused kernels cannot take m={m} n={n} r={r}: a block's vectors "
-                         f"need {out[2]} bytes of shared memory")
-    return {"cluster": int(out[0]), "operators": _TIERS[out[1]], "smem_bytes": int(out[2]),
+        raise ValueError(f"the fused kernels cannot take m={m} n={n} r={r}: a block would need "
+                         f"{out[2]} bytes of shared memory")
+    return {"cluster": int(out[0]), "operators": _TIERS[out[1]],
+            "vectors": "scratch" if out[4] else "shared", "smem_bytes": int(out[2]),
             "scratch_elems": int(out[3])}
 
 

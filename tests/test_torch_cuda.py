@@ -238,24 +238,89 @@ def test_fused_kernels_two_launches_equal_to_the_bit(cuda_device, case):
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
+# Two batch sizes of the same members: a different cluster size (8 blocks an
+# update at B = 1, one at 128) and, at (100, 150), another home for the
+# operators (distributed shared memory, then scratch); the bits are the same.
+@pytest.mark.parametrize("case", ["A (32,48) f64", "A (100,150) f64", "A (256,320) f32",
+                                  "B m512 n768 r16 f32", "B m1024 n4096 r32 f64"])
+def test_fused_kernels_same_bits_at_every_batch_size(cuda_device, case):
+    rng = np.random.default_rng(67)
+    kind, dt = case[0], torch.float64 if case.endswith("f64") else torch.float32
+    if kind == "A":
+        m, n = {"A (32,48) f64": (32, 48), "A (100,150) f64": (100, 150),
+                "A (256,320) f32": (256, 320)}[case]
+        big_b = 128 if m < 256 else 67
+        args = _full_args(rng, big_b, m, n, dt, cuda_device)
+        fn, plan = F.fused_update_cuda, lambda bsz: F.launch_plan(_suffix(dt), bsz, m, n)
+    else:
+        m, n, r = (512, 768, 16) if "m512" in case else (1024, 4096, 32)
+        big_b = 128
+        args = _trunc_args(rng, big_b, m, n, r, dt, cuda_device)
+        fn, plan = F.fused_update_truncated_cuda, lambda bsz: F.launch_plan(_suffix(dt), bsz, m, n, r)
+    assert plan(1)["cluster"] == 8 and plan(big_b)["cluster"] == 1
+    whole = fn(*args)
+    for bsz in (1, 3, 16):
+        part = fn(*[x[:bsz].contiguous() for x in args])
+        torch.cuda.synchronize()
+        assert all(torch.equal(x[:bsz], y) for x, y in zip(whole, part)), bsz
+
+
+# The largest shapes the fused gate passes, through api.update with the
+# default policy (auto sizes the gate in f32 unless storage_dtype is set, so
+# f64 states up to (323, 323) or (2, 457) take the fused route): kernel A
+# takes them, past kmax ~300 in f64 with its vectors in device scratch, and
+# agrees with the same update on the CPU (the plain body).
+@pytest.mark.parametrize("m,n,dtype", [
+    (200, 300, torch.float64), (256, 320, torch.float64), (323, 323, torch.float64),
+    (2, 457, torch.float64), (323, 323, torch.float32), (2, 457, torch.float32),
+])
+def test_fused_kernel_takes_the_largest_gate_shapes(cuda_device, m, n, dtype):
+    rng = np.random.default_rng(68)
+    u, s, v, a, b = spectrum_problem(rng, m, n)
+    pol = api.UpdatePolicy()
+    assert pol.resolve_method(n, m=m, n=n) == "fused"
+    plan = F.launch_plan(_suffix(dtype), 1, m, n)
+    assert plan["vectors"] == ("scratch" if dtype == torch.float64 and max(n, m + 2) > 301
+                               else "shared")
+    state = convert.state_from_arrays(u, s, v, device=cuda_device, dtype=dtype)
+    before = _build.LAUNCHES["fused_update"]
+    got = api.update(state, t(a, dtype, cuda_device), t(b, dtype, cuda_device), pol)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_update"] == before + 1
+    want = api.update(convert.state_from_arrays(u, s, v, device="cpu", dtype=dtype),
+                      t(a, dtype, "cpu"), t(b, dtype, "cpu"), pol)
+    tol = FUSED_TOL[dtype] if dtype == torch.float64 else FUSED_TOL_256
+    assert _within(_err((got.u.cpu(), got.s.cpu(), got.v.cpu()), (want.u, want.s, want.v)), tol)
+
+
+# The one-block kernels this design replaced took f64 shapes up to kmax ~490
+# (their vectors in shared memory); these run, with the vectors in scratch.
+@pytest.mark.parametrize("case", ["A (300,490)", "B m500 n520 r480"])
+def test_fused_kernels_take_what_one_block_took(cuda_device, case):
+    rng = np.random.default_rng(69)
+    if case.startswith("A"):
+        args = _full_args(rng, 1, 300, 490, torch.float64, cuda_device)
+        assert F.launch_plan("f64", 1, 300, 490)["vectors"] == "scratch"
+        got, want = F.fused_update_cuda(*args), F._fused_body(*args)
+    else:
+        args = _trunc_args(rng, 1, 500, 520, 480, torch.float64, cuda_device)
+        assert F.launch_plan("f64", 1, 500, 520, 480)["vectors"] == "scratch"
+        got, want = F.fused_update_truncated_cuda(*args), F._fused_truncated_body(*args)
+    torch.cuda.synchronize()
+    assert _within(_err(got, want), FUSED_TOL[torch.float64])
+
+
 def test_fused_kernels_refuse_what_they_cannot_take(cuda_device):
     rng = np.random.default_rng(66)
-    # a block's vectors alone exceed its shared memory: refused, never run
-    big = _full_args(rng, 1, 600, 600, torch.float64, cuda_device)
-    before = _build.LAUNCHES["fused_update"]
-    with pytest.raises(ValueError, match="cannot take"):
-        F.fused_update_cuda(*big)
-    assert _build.LAUNCHES["fused_update"] == before
-    tbig = _trunc_args(rng, 1, 600, 700, 499, torch.float64, cuda_device)
-    with pytest.raises(ValueError, match="cannot take"):
-        F.fused_update_truncated_cuda(*tbig)
     args = _full_args(rng, 2, 32, 48, torch.float64, cuda_device)
+    before = _build.LAUNCHES["fused_update"]
     with pytest.raises(ValueError, match="shapes"):
         F.fused_update_cuda(args[2], args[1], args[0], args[3], args[4])   # m > n
     with pytest.raises(ValueError, match="shapes"):
         F.fused_update_cuda(args[0], args[1][:, :-1].contiguous(), *args[2:])
     with pytest.raises(ValueError, match="contiguous CUDA"):
         F.fused_update_cuda(args[0].cpu(), *args[1:])
+    assert _build.LAUNCHES["fused_update"] == before
     with pytest.raises(NotImplementedError):
         F.fused_update_truncated_cuda(*[x.to(torch.float16) for x in
                                         _trunc_args(rng, 2, 64, 96, 8, torch.float64, cuda_device)],

@@ -62,7 +62,7 @@ TRUNC_ENTRY(fused_update_truncated_f64, double, double)
 // blocks per update, for either build.
 #ifdef PLAN_ENTRIES
 long long probe_scratch(int kind, int dbl, int B, int m, int n, int r, long long* csz) {
-  long long out[4];
+  long long out[5];
   if (dbl) plan_entry<double, double>(kind, B, m, n, r, out);
   else plan_entry<float, float>(kind, B, m, n, r, out);
   *csz = out[0];

@@ -15,7 +15,8 @@ its history, else from ``build/fused_phases/parent_src``.  Both builds run in
 parallel into ``build/fused_phases/``.
 
 Then, at the four headline shapes (A f64 B128 (32, 48); A f32 B32 (256, 320);
-B f32 B16 m512 n768 r16; B f32 and f64 B8 m1024 n4096 r32), on inputs of
+B f32 B16 m512 n768 r16; B f32 and f64 B8 m1024 n4096 r32) and at A f64 B4
+(256, 320) (kernel A's vectors in device scratch), on inputs of
 ``chip_smoke.py``'s kind (orthonormal factors, singular values 100 .. 1
 geometric, |a| |b| the median one) it runs each kernel once to warm up, then
 ``--reps`` launches, and prints block 0's cycles per phase (the mean over the
@@ -176,6 +177,7 @@ def main() -> int:
     cases = []
     for kind, bsz, m, n, r, dt in (("A", 128, 32, 48, None, torch.float64),
                                    ("A", 32, 256, 320, None, torch.float32),
+                                   ("A", 4, 256, 320, None, torch.float64),
                                    ("B", 16, 512, 768, 16, torch.float32),
                                    ("B", 8, 1024, 4096, 32, torch.float32),
                                    ("B", 8, 1024, 4096, 32, torch.float64)):
