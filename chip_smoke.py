@@ -11,10 +11,13 @@ result) when it fails:
 1. build: compiles every CUDA source of ``src/repro_torch/csrc`` with nvcc for
    sm_90a (in parallel) into ``build/repro_torch/`` and prints the seconds;
 2. kernels against their plain PyTorch versions on the card, at the shapes
-   the main path and the benchmarks give them, each with its tolerance (see
-   ``TOL``, ``SPARSE_TOL``, ``SECULAR_TOL``, ``NEAR_TOL``), and each check
-   shown to reject planted faults; bf16 storage against the reference's
-   ``BF16_ERROR_BUDGET``;
+   the main path and the benchmarks give them (C also at the three shapes
+   the main path's ``method="pallas"`` drive gives it, ``CAUCHY_MAIN_SHAPES``;
+   D at 58+4 and 16+6 steps, ``SECULAR_STEPS``), each with its tolerance (see
+   ``TOL``, ``CAUCHY_TOL``, ``SPARSE_TOL``, ``SECULAR_TOL``, ``NEAR_TOL``),
+   two launches equal to the bit where the kernel promises it, and each
+   check shown to reject planted faults; bf16 storage against the
+   reference's ``BF16_ERROR_BUDGET``;
 3. the main path: ``api.update_many`` / ``api.update`` with the default policy
    (auto -> fused kernels A and B) and with ``method="pallas"`` (kernel C),
    checked by reconstruction (f64) and against the same route on the CPU;
@@ -41,7 +44,10 @@ result) when it fails:
    and the walk on the plain bucketing (a PyTorch stable sort and
    ``searchsorted``, the bucketing kernel F used to take); for A and B the
    profiler's device time, the host time, the blocks an update (the cluster
-   size); each drive end to end; and the FMM route
+   size); for C and D the device and host time, C's plan (targets a panel,
+   blocks a panel) at each shape, and for D beside the bound a second one
+   at the pipes it can use (``SECULAR_SASS``); each drive end to end; and
+   the FMM route
    against ``method="pallas"`` (kernel C) and ``direct`` at (1024, 1024).
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
@@ -101,6 +107,12 @@ F64_RECON_LIMIT = 1e-10
 # the Cauchy product against its plain version, relative to max |out|: N
 # products summed in another order
 CAUCHY_TOL = {"float64": 1e-12, "float32": 1e-5}
+# (B, k) of the products method="pallas" gives kernel C on the main path
+# (R = N = M = k; counted on the CPU through a spy on
+# kernels.ops.cauchy_matmul_stable): the full update at (128, 192) B4 makes
+# four at k = 128 and four at k = 192, the truncated one at r 16 B16 eight at
+# k = 17
+CAUCHY_MAIN_SHAPES = ((4, 128), (4, 192), (16, 17))
 # the sparse projection against its plain version, relative to max |out|: each
 # row's terms are summed in the same (entry) order on the kernel's side, so
 # only the rounding of the fused multiply-add differs (the plain version's
@@ -185,6 +197,17 @@ DRIVE_LAUNCHES = {
 # too few, read on the roots that hug their poles at 4 bisection steps, where
 # the Newton steps carry the solve (after 58 the bisection alone converges).
 SECULAR_TOL = {"float64": 1e-13, "float32": 1e-5}
+# kernel D's step counts: the default (kernels/secular_newton.py) and the
+# fused route's (N_BISECT, N_NEWTON)
+SECULAR_STEPS = ((58, 4), (16, 6))
+# kernel D's instructions a pole term on its arithmetic pipe, read from
+# cuobjdump -sass of its build (tools/cauchy_secular_probe.py --sass): a
+# bisection term DADD (the difference) + 3 DFMA (the reciprocal's correction)
+# + DFMA (the sum), a Newton term DADD + 3 DFMA + DMUL + DADD + DFMA; in f32
+# the same on FADD / FFMA / FMUL with one correction of 2 FFMA; one MUFU
+# (RCP64H, RCP) a term; "lanes" the pipe's lanes a clock an SM
+SECULAR_SASS = {"float64": {"bisect": 5, "newton": 7, "lanes": 64},
+                "float32": {"bisect": 4, "newton": 6, "lanes": 128}}
 # kernel E against its plain version, relative to max |out|: 3cap products
 # summed in another order.  Planted faults: the invalid source slots left
 # unmasked, and the sign of tau flipped.
@@ -489,16 +512,31 @@ def main() -> int:
     log("kernels vs plain:")
     errs = {}
     cases = {}
-    for dtype in (torch.float64, torch.float32):
-        args = cauchy_inputs(16, 192, 192, 192, dtype)
-        got = CM.cauchy_matmul_cuda(*args)
-        want = CM.cauchy_matmul_plain(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(f"C cauchy_matmul B16 R=N=M=192 {name_of(dtype)}, relative to max |out|",
-              err / float(want.abs().max()), CAUCHY_TOL[name_of(dtype)])
-        errs[("C", name_of(dtype))] = err
-        cases[("C", name_of(dtype))] = ("B16 R=N=M=192", args)
+    # kernel C at the headline B16 R=N=M=192 and at the three shapes the main
+    # path's method="pallas" drive gives it (CAUCHY_MAIN_SHAPES); planted
+    # faults: tau's sign flipped, each member's w taken from the next
+    for bsz, k in ((16, 192),) + CAUCHY_MAIN_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            args = cauchy_inputs(bsz, k, k, k, dtype)
+            got = CM.cauchy_matmul_cuda(*args)
+            want = CM.cauchy_matmul_plain(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            label = f"C cauchy_matmul B{bsz} R=N=M={k} {name_of(dtype)}, relative to max |out|"
+            log(f"  C B{bsz} R=N=M={k} {name_of(dtype)} launch: "
+                f"{CM.cauchy_plan(bsz, k, k, k, dtype)}")
+            check(label, err / scale, CAUCHY_TOL[name_of(dtype)])
+            require(torch.equal(got, CM.cauchy_matmul_cuda(*args)), f"{label}: two launches differ")
+            for what, fault in (("tau's sign flipped", args[:3] + [-args[3], args[4]]),
+                                ("members shifted by one", [args[0].roll(1, 0).contiguous()]
+                                 + args[1:])):
+                e = float((CM.cauchy_matmul_cuda(*fault) - want).abs().max()) / scale
+                log(f"    planted fault, {what}: {e:.3e} (tol {CAUCHY_TOL[name_of(dtype)]:.0e})")
+                require(e > CAUCHY_TOL[name_of(dtype)],
+                        f"{label}: the check passes a planted fault ({what})")
+            errs[("C", name_of(dtype), bsz, k)] = err
+            cases[("C", name_of(dtype), bsz, k)] = (f"B{bsz} R=N=M={k}", args)
 
     for bsz, m, n, dtype in ((128, 32, 48, torch.float64), (32, 256, 320, torch.float32),
                              (128, 32, 48, torch.bfloat16)):
@@ -677,15 +715,21 @@ def main() -> int:
         dn = name_of(dtype)
         for brackets in ("real", "random"):
             args = secular_inputs(brackets, dtype)
-            got = SN.secular_solve_cuda(*args)
-            want = SN.secular_solve_plain(*args)
-            torch.cuda.synchronize()
-            label = f"D secular_solve B8 N=M=1024 {brackets} brackets {dn}, over the widest bracket"
-            err = check(label, secular_err(got, want, args), SECULAR_TOL[dn])
-            require(torch.equal(got, SN.secular_solve_cuda(*args)), f"{label}: two launches differ")
-            secular_cases[(brackets, dn)] = (args, float((got - want).abs().max()))
+            if brackets == "real" and dn == "float64":
+                log(f"  D B8 N=M=1024 launch: {SN.secular_plan(args[0].shape[1])}")
+            for nb, nn_ in SECULAR_STEPS:
+                got = SN.secular_solve_cuda(*args, n_bisect=nb, n_newton=nn_)
+                want = SN.secular_solve_plain(*args, n_bisect=nb, n_newton=nn_)
+                torch.cuda.synchronize()
+                label = (f"D secular_solve B8 N=M=1024 {brackets} brackets {nb}+{nn_} steps {dn}, "
+                         "over the widest bracket")
+                err = check(label, secular_err(got, want, args), SECULAR_TOL[dn])
+                require(torch.equal(got, SN.secular_solve_cuda(*args, n_bisect=nb, n_newton=nn_)),
+                        f"{label}: two launches differ")
+                secular_cases[(brackets, dn, nb, nn_)] = (args, float((got - want).abs().max()))
             if brackets != "real":
                 continue
+            want = SN.secular_solve_plain(*args)
             hug = slice(0, None, 9)
             want4 = SN.secular_solve_plain(*args, n_bisect=4, n_newton=4)
             check(f"  D at 4 bisection + 4 Newton steps {dn}, pole-hugging roots",
@@ -1128,6 +1172,7 @@ def main() -> int:
             fn = lambda a=args: CM.cauchy_matmul_cuda(*a)  # noqa: E731
             plain = lambda a=args: CM.cauchy_matmul_plain(*a)  # noqa: E731
             lib = None
+            cplan = CM.cauchy_plan(bsz, rr, nn, mm, args[0].dtype)
         elif kernel == "A":
             bsz, mm, _ = args[0].shape
             nn = args[2].shape[1]
@@ -1155,6 +1200,12 @@ def main() -> int:
         rows.append(row)
         lib_txt = f"{row['library_ms']:.3f}" if lib else "none"
         extra = ""
+        if kernel == "C":
+            row["targets"], row["cluster"] = cplan["targets"], cplan["cluster"]
+            row["device_ms"], _ = device_ms(fn)
+            row["host_ms"] = host_ms(fn)
+            extra = (f" (device {row['device_ms']:.4f}, host {row['host_ms']:.4f}; "
+                     f"{cplan['targets']} targets a panel, {cplan['cluster']} blocks a panel)")
         if kernel in ("A", "B"):
             plan = plan_of(kernel, args)
             row["cluster"], row["operators"] = plan["cluster"], plan["operators"]
@@ -1162,8 +1213,8 @@ def main() -> int:
             row["host_ms"] = host_ms(fn, n=20)
             extra = (f" (device {row['device_ms']:.4f}, host {row['host_ms']:.4f}; "
                      f"{plan['cluster']} blocks an update, operators in {plan['operators']} memory)")
-        log(f"  {kernel} {dt} {shape}: kernel {row['ms']:.3f} ms{extra} | plain {row['plain_ms']:.3f} ms "
-            f"| torch.linalg.svd {lib_txt} ms | bound {b_ms:.4f} ms ({b_by})")
+        log(f"  {kernel} {dt} {shape}: kernel {row['ms']:.4f} ms{extra} | plain {row['plain_ms']:.3f} ms "
+            f"| torch.linalg.svd {lib_txt} ms | bound {b_ms:.5f} ms ({b_by})")
     f_rows = []
     for (label, dn), (args, out_rows, err) in sparse_cases.items():
         op = SP.cuda_operands(*args)
@@ -1224,22 +1275,40 @@ def main() -> int:
     # kernel D: every step of every root reads all N poles; 5 operations a
     # pole term in a bisection step (2 subtractions, a division, a
     # multiply-add) and 7 in a Newton step; poles, weights, rho and three
-    # numbers a root read once, tau written once
+    # numbers a root read once, tau written once.  Beside that bound, one at
+    # the pipes D can use (no tensor cores: the terms are reciprocals): its
+    # own instructions a term, read from cuobjdump -sass of the build
+    # (tools/cauchy_secular_probe.py --sass; SECULAR_SASS), over 132 SMs x
+    # 64 f64 lanes (f64) or 128 f32 lanes (f32) and 16 MUFU lanes a clock at
+    # the card's largest SM clock
     d_rows = []
-    for (brackets, dn), (args, err) in secular_cases.items():
+    sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                   "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                                  check=True).stdout.split()[0])
+    for (brackets, dn, nb, nn_), (args, err) in secular_cases.items():
         bsz, nn = args[0].shape
         mm = args[3].shape[1]
         isz = args[0].element_size()
         nbytes = isz * (2 * bsz * nn + bsz + 4 * bsz * mm)
-        ops = bsz * mm * nn * (58 * 5 + 4 * 7)
+        ops = bsz * mm * nn * (nb * 5 + nn_ * 7)
         b_ms, b_by = bound(nbytes, ops, dn)
+        sass = SECULAR_SASS[dn]
+        terms_b, terms_n = bsz * mm * nn * nb, bsz * mm * nn * nn_
+        clk = torch.cuda.get_device_properties(0).multi_processor_count * sm_mhz * 1e6
+        pipe_ms = max((terms_b * sass["bisect"] + terms_n * sass["newton"]) / (clk * sass["lanes"]),
+                      (terms_b + terms_n) / (clk * 16)) * 1e3
+        fn = lambda a=args, b_=nb, n_=nn_: SN.secular_solve_cuda(*a, n_bisect=b_, n_newton=n_)  # noqa: E731
         row = {"kernel": "D", "dtype": dn, "shape": f"B{bsz} N=M={nn} {brackets} brackets",
-               "ms": time_ms(lambda a=args: SN.secular_solve_cuda(*a)),
-               "plain_ms": time_ms(lambda a=args: SN.secular_solve_plain(*a)), "library_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops, "max_abs_err": err}
+               "steps": f"{nb}+{nn_}", "ms": time_ms(fn), "device_ms": device_ms(fn)[0],
+               "host_ms": host_ms(fn),
+               "plain_ms": time_ms(lambda a=args, b_=nb, n_=nn_: SN.secular_solve_plain(
+                   *a, n_bisect=b_, n_newton=n_)), "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by, "pipe_bound_ms": pipe_ms, "bytes": nbytes,
+               "ops": ops, "max_abs_err": err}
         d_rows.append(row)
-        log(f"  D {dn} {row['shape']}: kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.3f} ms "
-            f"| bound {b_ms:.5f} ms ({b_by})")
+        log(f"  D {dn} {row['shape']} {row['steps']}: kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}, host {row['host_ms']:.4f}) | plain {row['plain_ms']:.3f} ms "
+            f"| bound {b_ms:.5f} ms ({b_by}) | pipe bound {pipe_ms:.5f} ms at {sm_mhz:.0f} MHz")
     # kernel E: 2 operations a multiply-add over R x nb x 3cap x capt, and 4 to
     # build each block entry (a subtraction, an addition, a division, the
     # mask); w_near and the coordinates read once, out written once.  The
@@ -1302,7 +1371,7 @@ def main() -> int:
                                  "routes": route_rows, "drive_launches": drive_launches,
                                  "fmm_overflowed": fmm_overflows, "card": card}))
 
-    headline = {"C": ("float64",), "A": ("float64", 32), "B": ("float32", 512)}
+    headline = {"C": ("float64", 16, 192), "A": ("float64", 32), "B": ("float32", 512)}
     meta = {
         "C": ("cauchy_matmul", "src/repro_torch/csrc/cauchy_matmul.cu",
               "src/repro/kernels/cauchy_matmul.py:139", "cauchy_matmul"),
@@ -1320,7 +1389,7 @@ def main() -> int:
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                        **({k_: row[k_] for k_ in ("cluster", "device_ms", "host_ms")
+                        **({k_: row[k_] for k_ in ("cluster", "targets", "device_ms", "host_ms")
                             if k_ in row}),
                         "shape": f"{row['dtype']} {row['shape']}"})
     # kernel F (with its bucketing) at the sketch's shape, as drive 2 gives it;
@@ -1341,7 +1410,8 @@ def main() -> int:
     for name, source, replaces, counter, row in (
             ("secular_solve", "src/repro_torch/csrc/secular_newton.cu",
              "src/repro/kernels/secular_newton.py:47", "secular_solve",
-             next(rw for rw in d_rows if rw["dtype"] == "float64" and "real" in rw["shape"])),
+             next(rw for rw in d_rows if rw["dtype"] == "float64" and "real" in rw["shape"]
+                  and rw["steps"] == "58+4")),
             ("nearfield", "src/repro_torch/csrc/nearfield.cu", "src/repro/kernels/nearfield.py:39",
              "nearfield", next(rw for rw in e_rows if rw["dtype"] == "float64"
                                and rw["shape"].startswith("full B8")))):
@@ -1351,8 +1421,8 @@ def main() -> int:
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": None,
-                        **({"einsum_near_inv_ms": row["einsum_near_inv_ms"],
-                            "device_ms": row["device_ms"]} if "einsum_near_inv_ms" in row else {}),
+                        **({k_: row[k_] for k_ in ("einsum_near_inv_ms", "device_ms", "host_ms",
+                                                   "pipe_bound_ms", "steps") if k_ in row}),
                         "shape": f"float64 {row['shape']}"})
     log(f"run: {time.perf_counter() - t_run:.0f} s")
     print(json.dumps({"kernels": kernels}))

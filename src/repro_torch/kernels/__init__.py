@@ -7,7 +7,7 @@ fused_update    the whole rank-1 update, full (kernel A) and truncated
 sparse_proj     COO projection S @ mat: the entries bucketed by destination
                 row on the card, one lane group per row (csrc/sparse_proj.cu,
                 kernel F)
-secular_newton  the fixed-count secular root solve, one warp per root
+secular_newton  the fixed-count secular root solve, a lane group per root
                 (csrc/secular_newton.cu, kernel D)
 nearfield       the FMM near field, each Cauchy entry built once in shared
                 memory, f64 on the DMMA tensor cores (csrc/nearfield.cu,

@@ -41,6 +41,8 @@ _P, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longl
 _SIGNATURES = {
     "cauchy_matmul": {
         **{f"cauchy_matmul_{t}": ([_P] * 6 + [_I] * 4 + [_P], _I) for t in ("f32", "f64")},
+        **{f"cauchy_matmul_planned_{t}": ([_P] * 6 + [_I] * 6 + [_P], _I) for t in ("f32", "f64")},
+        "cauchy_plan": ([_I] * 5 + [_P] * 2, _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     **{f"fused_update_{t}": {
@@ -56,7 +58,8 @@ _SIGNATURES = {
         "sparse_scratch_ints": ([_I] * 4, _LL),
     },
     "secular_newton": {
-        f"secular_solve_{t}": ([_P] * 7 + [_I] * 5 + [_P], _I) for t in ("f32", "f64")
+        **{f"secular_solve_{t}": ([_P] * 7 + [_I] * 5 + [_P], _I) for t in ("f32", "f64")},
+        "secular_plan": ([_I] + [_P] * 2, _I),
     },
     "nearfield": {
         f"nearfield_{t}": ([_P] * 6 + [_I] * 5 + [_P], _I) for t in ("f32", "f64")

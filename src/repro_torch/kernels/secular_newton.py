@@ -12,20 +12,36 @@ be zero at invalid poles; a root with the bracket [0, 0] comes out as 0.
 
 ``secular_solve_plain`` is the plain PyTorch version (it stores the (N, M)
 difference tensor); ``secular_solve_cuda`` launches kernel D
-(``csrc/secular_newton.cu``), one warp per root with the poles staged in
-shared memory.  ``secular_solve`` picks by the device of ``dc``.
+(``csrc/secular_newton.cu``): a group of lanes per root holds the root's pole
+differences in registers, and each term's reciprocal is a hardware seed and a
+fixed correction, with no IEEE division.  It takes at most ``MAX_POLES``
+poles.  ``secular_plan`` gives the lanes a root and the poles a lane for N
+poles.  ``secular_solve`` picks by the device of ``dc``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.secular_body import secular_iterate
 
-__all__ = ["secular_solve", "secular_solve_cuda", "secular_solve_plain"]
+__all__ = ["MAX_POLES", "secular_plan", "secular_solve", "secular_solve_cuda",
+           "secular_solve_plain"]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# 32 poles a lane in registers, at most 256 lanes a root (one block)
+MAX_POLES = 8192
+
+
+def secular_plan(n: int) -> dict:
+    """Kernel D's lane group for ``n`` poles: ``lanes`` a root and ``terms``,
+    the poles each lane holds; chosen from ``n`` alone."""
+    lanes, terms = ctypes.c_int(0), ctypes.c_int(0)
+    _build.library("secular_newton").secular_plan(n, ctypes.byref(lanes), ctypes.byref(terms))
+    return {"lanes": lanes.value, "terms": terms.value}
 
 
 def secular_solve_plain(dc, zc2, rho, anchor_vals, lo, hi, *, n_bisect=58, n_newton=4):
@@ -55,6 +71,9 @@ def secular_solve_cuda(dc, zc2, rho, anchor_vals, lo, hi, *, n_bisect=58, n_newt
                              f"{x.dtype} on {x.device}, contiguous={x.is_contiguous()}")
     if n_bisect < 0 or n_newton < 0:
         raise ValueError(f"step counts must be >= 0; got {n_bisect}, {n_newton}")
+    if n > MAX_POLES:
+        raise ValueError(f"kernel D holds a root's poles in registers: at most {MAX_POLES} "
+                         f"poles; got {n}")
     out = torch.empty((bsz, m), dtype=dt, device=dc.device)
     if out.numel() == 0:
         return out

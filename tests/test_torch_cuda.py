@@ -20,7 +20,8 @@ from repro_torch.kernels import fused_update as F
 from repro_torch.kernels import nearfield as NF
 from repro_torch.kernels import secular_newton as SN
 from repro_torch.kernels import sparse_proj as SP
-from repro_torch.kernels.cauchy_matmul import cauchy_matmul_cuda, cauchy_matmul_plain
+from repro_torch.kernels.cauchy_matmul import (cauchy_matmul_cuda, cauchy_matmul_cuda_planned,
+                                                cauchy_matmul_plain, cauchy_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -639,3 +640,123 @@ def test_fmm_update_on_card_goes_through_kernel_e(cuda_device):
         scale = float(w.s[0])
         assert float((g.s.cpu() - w.s).abs().max()) / scale <= 1e-10
         assert float((_recon(g.u, g.s, g.v).cpu() - _recon(w.u, w.s, w.v)).abs().max()) / scale <= 1e-10
+
+
+# Kernel C as redesigned (each Cauchy entry built once per launch into a
+# panel, shared over a thread-block cluster where the panels alone leave SMs
+# idle; f64 on the tensor cores): the method="pallas" route's shapes, a
+# ragged one, more sources than one f64 panel of 48 targets holds, every plan
+# giving the same bits, planted faults the check catches, and the counter.
+CAUCHY_SHAPES = [(2, 5, 37, 29), (4, 128, 128, 128), (4, 192, 192, 192), (16, 17, 17, 17),
+                 (16, 192, 192, 192), (2, 300, 1100, 70)]
+
+
+def _cauchy_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", CAUCHY_SHAPES)
+def test_cauchy_kernel_redesigned(cuda_device, dtype, shape):
+    rng = np.random.default_rng(sum(shape))
+    args = [t(x, dtype, cuda_device) for x in _cauchy_inputs(rng, *shape)]
+    before = _build.LAUNCHES["cauchy_matmul"]
+    got = cauchy_matmul_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["cauchy_matmul"] == before + 1
+    want = cauchy_matmul_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    assert _cauchy_err(got, want) < CAUCHY_TOL[dtype]
+    assert torch.equal(got, cauchy_matmul_cuda(*args))
+    # planted faults: tau's sign flipped; each member's w taken from the next
+    flipped = cauchy_matmul_cuda(args[0], args[1], args[2], -args[3], args[4])
+    assert _cauchy_err(flipped, want) > CAUCHY_TOL[dtype]
+    if shape[0] > 1:
+        shifted = cauchy_matmul_cuda(args[0].roll(1, 0).contiguous(), *args[1:])
+        assert _cauchy_err(shifted, want) > CAUCHY_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 64, 200, 50), (2, 300, 1100, 70), (4, 192, 192, 192)])
+def test_cauchy_kernel_every_plan_same_bits(cuda_device, dtype, shape):
+    """16, 32 or 48 targets a panel and 1, 2, 4 or 8 blocks a cluster: the
+    same bits as the kernel's own plan (f64 at 48 targets and 1100 sources:
+    two chunks of the panel)."""
+    rng = np.random.default_rng(7 * sum(shape))
+    args = [t(x, dtype, cuda_device) for x in _cauchy_inputs(rng, *shape)]
+    base = cauchy_matmul_cuda(*args)
+    assert _cauchy_err(base, cauchy_matmul_plain(*args)) < CAUCHY_TOL[dtype]
+    for targets in (16, 32, 48):
+        for cluster in (1, 2, 4, 8):
+            got = cauchy_matmul_cuda_planned(*args, targets=targets, cluster=cluster)
+            assert torch.equal(got, base), (targets, cluster)
+
+
+def test_cauchy_kernel_plan_engages_the_cluster(cuda_device):
+    """At B4 k=192, the full update's rotation at (128, 192) B4, two blocks
+    share each panel; at B16 k=17 one block takes it alone."""
+    assert cauchy_plan(4, 192, 192, 192, torch.float64)["cluster"] > 1
+    assert cauchy_plan(4, 192, 192, 192, torch.float32)["cluster"] > 1
+    assert cauchy_plan(16, 17, 17, 17, torch.float64)["cluster"] == 1
+    rng = np.random.default_rng(65)
+    args = [t(x, torch.float64, cuda_device) for x in _cauchy_inputs(rng, 4, 192, 192, 192)]
+    with pytest.raises(ValueError, match="plan"):
+        cauchy_matmul_cuda_planned(*args, targets=64, cluster=2)
+    with pytest.raises(ValueError, match="expected shape"):
+        cauchy_matmul_cuda(args[0], args[1][:, :-1].contiguous(), *args[2:])
+
+
+# Kernel D as redesigned (a lane group per root holding its pole differences
+# in registers, reciprocals without IEEE division): the default and the fused
+# route's step counts, one group of fewer than 32 lanes, of 32, and of 256
+# (5000 poles), ragged root counts, real brackets at the headline shape, a
+# planted fault, and the refusal above MAX_POLES.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("steps", [(58, 4), (16, 6)])
+@pytest.mark.parametrize("bsz,n,m", [(2, 37, 45), (3, 333, 150), (2, 2500, 19), (1, 5000, 7),
+                                     (8, 1024, 1024)])
+def test_secular_kernel_redesigned(cuda_device, dtype, steps, bsz, n, m):
+    rng = np.random.default_rng(3 * n + m)
+    args = [t(x, dtype, cuda_device) for x in _secular_random(rng, bsz, n, m)]
+    _secular_check(args, *steps)
+    dropped = args[1].clone()
+    dropped.scatter_(1, dropped.argmax(1, keepdim=True), 0.0)
+    want = SN.secular_solve_plain(*args, n_bisect=steps[0], n_newton=steps[1])
+    fault = SN.secular_solve_cuda(args[0], dropped, *args[2:], n_bisect=steps[0],
+                                  n_newton=steps[1])
+    width = float((args[5] - args[4]).abs().max())
+    assert float((fault - want).abs().max()) / width > SECULAR_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("steps", [(58, 4), (16, 6)])
+def test_secular_kernel_redesigned_real_brackets(cuda_device, dtype, steps):
+    """chip_smoke.py's headline: B8 N = M = 1024, brackets as core.secular
+    builds them (every ninth root hugging its pole), every anchor a pole, so
+    a root whose bracket is [0, 0] meets a zero difference at every step."""
+    g = np.random.default_rng(21)
+    d = np.sort(g.uniform(1, 9, (8, 1024)) ** 2, axis=1)
+    z = g.normal(size=(8, 1024))
+    z[:, ::9] *= 1e-5
+    rho = g.uniform(0.5, 2.0, 8)
+    br = SEC.secular_brackets(t(d, dtype, cuda_device), t(z, dtype, cuda_device),
+                              t(rho, dtype, cuda_device), torch.full((8,), 1024, device=cuda_device))
+    lo, hi = br.lo.clone(), br.hi.clone()
+    lo[3, 100:110] = hi[3, 100:110] = 0.0
+    args = [t(d, dtype, cuda_device), br.zc2, t(rho, dtype, cuda_device), br.anchor_vals, lo, hi]
+    got = _secular_check(args, *steps)
+    assert bool((got[3, 100:110] == 0.0).all())
+
+
+def test_secular_kernel_plan_and_refusal(cuda_device):
+    assert SN.secular_plan(1024) == {"lanes": 32, "terms": 32}
+    assert SN.secular_plan(50) == {"lanes": 2, "terms": 25}
+    assert SN.secular_plan(5000) == {"lanes": 256, "terms": 20}
+    assert SN.secular_plan(SN.MAX_POLES + 1)["lanes"] == 0
+    rng = np.random.default_rng(66)
+    args = [t(x, torch.float64, cuda_device)
+            for x in _secular_random(rng, 1, SN.MAX_POLES + 1, 3)]
+    before = _build.LAUNCHES["secular_solve"]
+    with pytest.raises(ValueError, match="at most"):
+        SN.secular_solve_cuda(*args)
+    assert _build.LAUNCHES["secular_solve"] == before
