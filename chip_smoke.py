@@ -32,6 +32,18 @@ result) when it fails:
    overflowed named.  Before each drive the launch counters are zeroed, after
    it they are read and held to the counts the planner gives
    (``DRIVE_LAUNCHES``);
+3d. the streaming service, ``serve.SvdService`` (``service_inputs``): (s1)
+   16 streams at the reference's serving shape m512 n768 r16, 8 rounds, f64
+   and f32, under ``method="fused"`` (kernel B), ``"pallas"`` (C) and
+   ``"direct"``, each with ``max_in_flight`` 0 and 2: async equal to sync to
+   the bit, each route held to itself on the CPU; (s2) the same streams fed
+   RankK, Sparse (F), AppendRows and Window events, saved halfway with events
+   pending and restored from disk: the resumed service equal to the
+   uninterrupted one to the bit, its first flush adding no engine-cache miss
+   and building no library; (s3) 64 streams at m1024 n4096 r32 f32 flushed at
+   B64, then ``merge_streams`` over all of them (6 levels), held to the
+   stacked matrix's top-32 SVD (the same deployment in f64 at the
+   reference's merge tolerance);
 4. times: median of CUDA-event timings after warm-up, for each kernel, its
    plain version and a PyTorch call that computes the same function (one
    batched ``torch.linalg.svd`` of the updated matrices for A and B,
@@ -48,7 +60,14 @@ result) when it fails:
    blocks a panel) at each shape, and for D beside the bound a second one
    at the pipes it can use (``SECULAR_SASS``); each drive end to end; and
    the FMM route
-   against ``method="pallas"`` (kernel C) and ``direct`` at (1024, 1024).
+   against ``method="pallas"`` (kernel C) and ``direct`` at (1024, 1024); and
+   the service: ms a flush round by route and dtype at (s1) (CUDA events),
+   the device's busy share of it (profiler); wherever the profiler hands back
+   no device time three times running, the device time comes from CUDA events
+   and says so; the host's waits for the device
+   in a round (``torch.cuda.set_sync_debug_mode``), host µs an enqueue; save,
+   restore and warm seconds at (s2); the (s3) round and merge.
+
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -77,6 +96,8 @@ MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 67e12}
 N_BISECT, N_NEWTON = 16, 6
 DEVICE = "cuda"
+# the key of a device time taken with CUDA events when torch.profiler saw none
+EVENTS_KEY = "(CUDA events: the profiler saw no device time)"
 
 # Kernel against its plain version on the same inputs, on data with no
 # dominant singular value (see ``spectrum``), by two scale-free measures
@@ -189,6 +210,20 @@ DRIVE_LAUNCHES = {
     "iii quickstart": _FMM_CALL,
     "iv truncated r127": _FMM_CALL,
     "v fmm spread squares": _FMM_CALL,
+    # (3d) the service drives, counted on the CPU through spies on the
+    # wrappers (kernels.ops, updates.sketch.sparse_project) at the same inputs:
+    # s1 fused: 8 rounds x 2 dtypes x 2 in-flight depths, one B launch a round;
+    # s1 pallas: 8 Cauchy products (C) a truncated update; s1 direct: none;
+    # s2: the uninterrupted service, the saved one's first half and the
+    # resumed one's second half (B for rounds and for the ops' rank-1 steps;
+    # F 2 a Sparse expansion, 8 + 8, and 2 for the restore's warming of the
+    # sparse sketch); s3: 4 rounds at B64, then 6 merge levels of 32 rank-1
+    # steps each, in float32 and again in float64
+    "s1 fused": {**_NONE, "fused_update_truncated": 32},
+    "s1 pallas": {**_NONE, "cauchy_matmul": 256},
+    "s1 direct": _NONE,
+    "s2 failover": {**_NONE, "fused_update_truncated": 152, "sparse_project": 18},
+    "s3 B64 and merge": {**_NONE, "fused_update_truncated": 392},
 }
 # kernel D against its plain version: max |tau - tau'| over the widest
 # bracket (each root's terms summed in another order; the reference's own
@@ -234,6 +269,31 @@ FMM_TOL_V = {"recon": 1e-9, "sigma": 1e-7}
 # (ii) are the squared route's own error on uniform(1, 9) data (every FMM
 # plan there overflows, so it is the dense product's; direct reads the same),
 # (iii) is exact, (v) (where the FMM runs) reads 5.4e-9.
+# the service drives (phase 3d): the reference's serving shape
+# (benchmarks/bench_serve.py:56-58: 16 streams, m512 n768 r16) and a larger
+# deployment (64 streams at m1024 n4096 r32, about 42 MB of float32 factors)
+SERVE_S1 = {"streams": 16, "m": 512, "n": 768, "r": 16, "rounds": 8}
+SERVE_S3 = {"streams": 64, "m": 1024, "n": 4096, "r": 32, "rounds": 4}
+SERVE_METHODS = ("fused", "pallas", "direct")
+# (s1), (s3): the card's service against the same route on the CPU after all
+# its rounds: float64 max |U S V^T - U' S' V'^T| and |s - s'| over sigma_max;
+# float32 by TOL's scale-free measures.  (s2) per group of streams: 1e-10 by
+# TOL's measures, the Sparse streams at drive 2's limit (the sketch is
+# outside its exact regime there: a 1 % random COO delta at rank 8).  The
+# merge of (s3) against the stacked matrix's top-32 SVD: ten times the
+# merge's noise floor sqrt(eps) sigma_max, the rule behind the reference's own
+# tolerance (1e-6 against a ~1e-7 floor in float64, tests/test_dist_merge.py);
+# the same deployment in float64 at the reference's 1e-6.  Both relative, on
+# the singular values, both subspaces and the reconstruction against the
+# stacked matrix's rank-32 truncation.
+SERVE_F64_LIMIT = 1e-10
+SERVE_F32_TOL = {"recon": 1e-2, "sigma": 2e-3}
+SERVE_S2_TOL = {"RankK": {"recon": 1e-10, "sigma": 1e-10},
+                "Sparse": {"recon": 5e-6, "sigma": 5e-6},
+                "AppendRows": {"recon": 1e-10, "sigma": 1e-10},
+                "Window": {"recon": 1e-10, "sigma": 1e-10}}
+SERVE_MERGE_LIMIT = 10 * 2.0 ** -11.5
+SERVE_MERGE_F64_LIMIT = 1e-6
 FMM_TRUTH = {"i": (3.33e-7, 5e-7), "ii": (2.16e-7, 3e-7), "iii": (4.59e-14, 1e-13),
              "v": (5.38e-9, 1e-8)}
 
@@ -330,6 +390,115 @@ def fmm_inputs(seed: int = 3) -> dict:
     v = [(orth(n, n), np.sqrt(np.linspace(1e4, 1.0, n)), orth(n, n), rng.normal(size=n),
           rng.normal(size=n)) for _ in range(8)]
     return {"i": full[0], "ii": full[1:], "iii": iii, "iv": iv, "v": v}
+
+
+def service_inputs(seed: int = 5) -> dict:
+    """The numpy inputs of the service drives (phase 3d), from one seed.
+
+    s1. 16 rank-16 streams at m512 n768 (the reference's serving shape,
+        ``benchmarks/bench_serve.py:56-58``): QR-made orthonormal factors,
+        singular values 100 .. 1 geometric; ``SERVE_S1["rounds"]`` rounds of
+        one standard-normal pair a stream, scaled to |a| |b| = the median
+        singular value.
+    s2. the same streams: one round of pairs; then RankK (k = 4, N(0, 0.01))
+        on streams 0-3, a 1 % random COO Sparse (3932 entries, rank 8) on 4-7,
+        AppendRows (8 rows) on 8-11, Window(504, lam 0.97) on 12-15; then
+        one more round of pairs at each stream's new geometry.
+    s3. 64 rank-32 streams at m1024 n4096, row blocks of one matrix of rank
+        32: each stream's right factor is a common orthonormal V0 (4096 x 32)
+        turned by its own 32 x 32 rotation, singular values 100 .. 1; each
+        pair's b lies in V0's span, so every stream stays in it and the
+        stacked matrix keeps rank 32: the merge of the 64 streams is then
+        exact up to rounding, and its truth is the stacked matrix itself
+        (the reference's merge tests use globally low-rank data for this).
+        The stacked matrix's 32 singular values cluster (gaps down to 0.05 %).
+        ``SERVE_S3["rounds"]`` rounds.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def orth(*shape):
+        return np.linalg.qr(rng.normal(size=shape))[0]
+
+    def pairs(shapes, scale):
+        out = []
+        for m, n in shapes:
+            a, b = rng.normal(size=m), rng.normal(size=n)
+            out.append((a, b * scale / (np.linalg.norm(a) * np.linalg.norm(b))))
+        return out
+
+    def streams(count, m, n, r, rounds):
+        s = np.geomspace(100.0, 1.0, r)
+        return {"factors": [(orth(m, r), s, orth(n, r)) for _ in range(count)],
+                "rounds": [pairs([(m, n)] * count, np.median(s)) for _ in range(rounds)]}
+
+    s1 = streams(SERVE_S1["streams"], SERVE_S1["m"], SERVE_S1["n"], SERVE_S1["r"],
+                 SERVE_S1["rounds"])
+    m, n, scale = SERVE_S1["m"], SERVE_S1["n"], float(np.median(s1["factors"][0][1]))
+    nnz = int(0.01 * m * n)
+    s2 = {"pairs1": pairs([(m, n)] * 16, scale),
+          "rank_k": [(0.1 * rng.normal(size=(m, 4)), 0.1 * rng.normal(size=(n, 4)))
+                     for _ in range(4)],
+          "sparse": [(rng.integers(0, m, nnz).astype(np.int32),
+                      rng.integers(0, n, nnz).astype(np.int32), rng.normal(size=nnz))
+                     for _ in range(4)],
+          "append": [rng.normal(size=(8, n)) for _ in range(4)],
+          "window": (m - 8, 0.97),
+          "pairs2": pairs([(m, n)] * 8 + [(m + 8, n)] * 4 + [(m - 8, n)] * 4, scale)}
+    m3, n3, r3 = SERVE_S3["m"], SERVE_S3["n"], SERVE_S3["r"]
+    v0, s = orth(n3, r3), np.geomspace(100.0, 1.0, r3)
+    s3 = {"factors": [(orth(m3, r3), s, v0 @ orth(r3, r3)) for _ in range(SERVE_S3["streams"])],
+          "rounds": [[(a, v0 @ c * (np.median(s) / (np.linalg.norm(a) * np.linalg.norm(c))))
+                      for a, c in ((rng.normal(size=m3), rng.normal(size=r3))
+                                   for _ in range(SERVE_S3["streams"]))]
+                     for _ in range(SERVE_S3["rounds"])]}
+    return {"s1": s1, "s2": s2, "s3": s3}
+
+
+def serve_streams(api, serve, d, *, method, dtype, mif, device, max_batch=None):
+    """A service with the streams of ``d`` registered (not yet fed)."""
+    svc = serve.SvdService(max_batch=max_batch or len(d["factors"]), max_in_flight=mif,
+                           policy=api.UpdatePolicy(method=method))
+    for i, f in enumerate(d["factors"]):
+        svc.register(f"s{i}", api.SvdState.from_factors(*f, device=device, dtype=dtype))
+    return svc
+
+
+def serve_rounds(svc, rounds) -> None:
+    """Feed rounds of one pair a stream (each round's last enqueue flushes it)."""
+    for rnd in rounds:
+        for i, (a, b) in enumerate(rnd):
+            svc.enqueue(f"s{i}", a, b)
+
+
+def serve_s2_first(api, serve, updates, inputs, device):
+    """Drive (s2) up to its snapshot: a round of pairs, then the structured
+    events (their enqueue flushes one round, leaving RankK and Sparse pairs
+    pending)."""
+    d = inputs["s2"]
+    svc = serve_streams(api, serve, inputs["s1"], method="fused", dtype=None, mif=2,
+                        device=device)
+    for i, (a, b) in enumerate(d["pairs1"]):
+        svc.enqueue(f"s{i}", a, b)
+    for i in range(16):
+        j = i % 4
+        op = (updates.RankK(*d["rank_k"][j]) if i < 4
+              else updates.Sparse(*d["sparse"][j], rank=8) if i < 8
+              else updates.AppendRows(d["append"][j]) if i < 12
+              else updates.Window(d["window"][0], lam=d["window"][1]))
+        svc.enqueue_op(f"s{i}", op)
+    return svc
+
+
+def serve_s2_second(svc, inputs) -> None:
+    """Drive (s2) after its snapshot: one flush round of the pending pairs
+    (the first after a restore: its geometry is in the warmed set), then the
+    last round of pairs, drained."""
+    svc.flush_round()
+    for i, (a, b) in enumerate(inputs["s2"]["pairs2"]):
+        svc.enqueue(f"s{i}", a, b)
+    svc.drain()
 
 
 def require(ok, what: str) -> None:
@@ -507,6 +676,455 @@ def main() -> int:
             return FU.launch_plan(sfx, args[0].shape[0], args[0].shape[1], args[2].shape[1])
         return FU.launch_plan(sfx, args[0].shape[0], args[0].shape[1], args[2].shape[1],
                               args[0].shape[2])
+
+    def time_ms(fn, budget_ms=1500.0):
+        # one untimed call warms up and sizes the count: at least 3 timed calls
+        # where a call takes under half a second, 2 for the second-long routes
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        once = (time.perf_counter() - t) * 1e3
+        reps = int(min(30, max(3 if once < 500 else 2, budget_ms / max(once, 1e-3))))
+        times = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
+    def device_ms(fn, n=20, warm=True):
+        """Device time per call from torch.profiler (CUDA activity): the sum
+        over the kernels the call launches, and each kernel's share.  CUPTI
+        now and then hands back no activity, for a whole run of profiles: after
+        three empty ones the time comes from CUDA events around the n calls,
+        under the key ``EVENTS_KEY`` (an upper bound, since it also counts the
+        device's idle gaps between launches)."""
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            split = {}
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                if ev.device_time_total > 0:
+                    name = ev.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+                    name = name.split("(")[0].split("<")[0].strip()[:40]
+                    split[name] = split.get(name, 0.0) + ev.device_time_total / n / 1e3
+            if split:
+                return sum(split.values()), split
+        log("  torch.profiler saw no device time in three profiles: CUDA events instead")
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / n
+        require(ms > 0, "neither torch.profiler nor CUDA events saw device time")
+        return ms, {EVENTS_KEY: ms}
+
+    def host_ms(fn, n=50):
+        """Host time to enqueue one call (no synchronisation inside the loop)."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out = (time.perf_counter() - t) / n * 1e3
+        torch.cuda.synchronize()
+        return out
+
+    drive_launches = {}
+    drive_timing = []
+
+    def drive(name, fn):
+        """Run one drive with the counters zeroed just before and read just
+        after; they must equal the planner's counts."""
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        drive_launches[name] = got
+        log(f"  drive {name}: launches {got}")
+        for kname, want_n in DRIVE_LAUNCHES[name].items():
+            require(got[kname] == want_n,
+                    f"drive {name}: {kname} launched {got[kname]} times, expected {want_n}")
+        return out
+
+    # -- phase 3d, run after 3c: the streaming service (serve.SvdService) ------
+
+    def stream_stack(svc, sids):
+        sts = [svc.state(s) for s in sids]
+        return [torch.stack([getattr(x, f) for x in sts]).cpu() for f in ("u", "s", "v")]
+
+    def require_bitwise(label, x, y):
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(x, y))
+        log(f"  {label}: {'equal to the bit' if same else 'NOT equal'}")
+        require(same, f"{label}: not equal to the bit")
+
+    def over_sigma_max(got, want):
+        """max |U S V^T - U' S' V'^T| and max |s - s'|, over sigma_max of
+        ``want``, the largest over the streams."""
+        rw, rg = recon(*want[:3]), recon(*got[:3])
+        smax = want[1].double().abs().amax(-1)
+        return max(float(((rg - rw).abs().amax((-2, -1)) / smax).max()),
+                   float(((got[1].double() - want[1].double()).abs().amax(-1) / smax).max()))
+
+    def sigma_max_faults(label, got, want, v_in, limit):
+        """The sigma_max check must reject V left unrotated and the sign of the
+        first stream's largest triplet flipped."""
+        flip = got[0].clone()
+        flip[0, :, 0] = -flip[0, :, 0]
+        for what, fault in (("V unrotated", (got[0], got[1], v_in)),
+                            ("sign of the largest triplet flipped", (flip, got[1], got[2]))):
+            e = over_sigma_max(fault, want)
+            log(f"    planted fault, {what}: {e:.3e} (limit {limit:.3g})")
+            require(e > limit, f"{label}: the check passes a planted fault ({what})")
+
+    def service_phase():
+        """Drives (s1)-(s3) through ``serve.SvdService`` on the card, each with
+        the launch counters zeroed before it and held to ``DRIVE_LAUNCHES``
+        after it; returns what phase 4 times."""
+        import shutil
+
+        from repro_torch import obs, serve
+        from repro_torch.core import engine as ENG
+        from repro_torch.dist import merge_tree
+
+        log("the streaming service (serve.SvdService):")
+        inp = service_inputs()
+        f64, f32 = torch.float64, torch.float32
+        d1 = inp["s1"]
+        ids = [f"s{i}" for i in range(SERVE_S1["streams"])]
+
+        def run1(method, dtype, mif, device):
+            svc = serve_streams(api, serve, d1, method=method, dtype=dtype, mif=mif, device=device)
+            serve_rounds(svc, d1["rounds"])
+            svc.drain()
+            return svc
+
+        # (s1) rank-1 streams at the reference's serving shape, per route
+        for method in SERVE_METHODS:
+            runs = drive(f"s1 {method}", lambda m_=method: {
+                (name_of(dt), mif): run1(m_, dt, mif, dev) for dt in (f64, f32) for mif in (0, 2)})
+            for dt in (f64, f32):
+                dn = name_of(dt)
+                label = (f"(s1) {method} {dn} {SERVE_S1['streams']} streams m{SERVE_S1['m']} "
+                         f"n{SERVE_S1['n']} r{SERVE_S1['r']}, {SERVE_S1['rounds']} rounds")
+                got = stream_stack(runs[(dn, 2)], ids)
+                require(all(bool(torch.isfinite(x).all()) for x in got), f"{label}: non-finite")
+                require_bitwise(f"{label}: max_in_flight 2 against 0", got,
+                                stream_stack(runs[(dn, 0)], ids))
+                want = stream_stack(run1(method, dt, 2, "cpu"), ids)
+                v_in = torch.stack([torch.as_tensor(f[2]) for f in d1["factors"]]).to(dt)
+                if dn == "float64":
+                    check(f"{label}: card vs CPU, over sigma_max", over_sigma_max(got, want),
+                          SERVE_F64_LIMIT)
+                    sigma_max_faults(label, got, want, v_in, SERVE_F64_LIMIT)
+                else:
+                    check_pair(f"{label}: card vs CPU", got, want, SERVE_F32_TOL)
+                    planted_faults(label, got, want, v_in, SERVE_F32_TOL)
+
+        # (s2) structured events and failover: the uninterrupted service, and
+        # one saved halfway and restored from disk, must end equal to the bit
+        ckpt_dir = ROOT / "build" / "chip_smoke_service_ckpt"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        s2 = {}
+
+        def run2():
+            whole = serve_s2_first(api, serve, updates, inp, dev)
+            serve_s2_second(whole, inp)
+            part = serve_s2_first(api, serve, updates, inp, dev)
+            s2["pending"] = part.pending()
+            part.save(ckpt_dir, step=1)
+            for eng in ENG._default_engines.values():
+                eng.cache_clear()      # so the restore's warming is what the flush finds
+            _, resumed = serve.SvdService.restore(ckpt_dir, device=dev)
+            s2["misses"] = sum(e.cache_info().misses for e in ENG._default_engines.values())
+            builds = []
+            real_build = _build.build_all
+            _build.build_all = lambda: builds.append(1) or real_build()
+            try:
+                resumed.flush_round()          # the first flush after the restore
+                torch.cuda.synchronize()
+            finally:
+                _build.build_all = real_build
+            s2["first_misses"] = sum(e.cache_info().misses
+                                     for e in ENG._default_engines.values()) - s2["misses"]
+            s2["first_builds"] = len(builds)
+            for i, (a, b) in enumerate(inp["s2"]["pairs2"]):
+                resumed.enqueue(f"s{i}", a, b)
+            resumed.drain()
+            return whole, resumed
+
+        whole, resumed = drive("s2 failover", run2)
+        label2 = ("(s2) fused float64 16 streams m512 n768 r16: RankK, Sparse, AppendRows, "
+                  f"Window; saved with {s2['pending']} events pending, restored")
+        require(s2["pending"] > 0, f"{label2}: nothing pending at the snapshot")
+        log(f"  {label2}: first flush after the restore: {s2['first_misses']} engine-cache "
+            f"misses, {s2['first_builds']} library builds (warmed set: "
+            f"{len(resumed._warmed)} entries)")
+        require(s2["first_misses"] == 0 and s2["first_builds"] == 0,
+                f"{label2}: the first flush after the restore missed the warmed caches")
+        require(all(tuple(whole.state(s).u.shape) == tuple(resumed.state(s).u.shape) for s in ids),
+                f"{label2}: shapes differ")
+        for s in ids:
+            require(all(torch.equal(getattr(whole.state(s), f), getattr(resumed.state(s), f))
+                        for f in ("u", "s", "v")), f"{label2}: stream {s} differs from the bit")
+        log(f"  {label2}: resumed vs uninterrupted: every stream equal to the bit")
+        cpu_whole = serve_s2_first(api, serve, updates, inp, "cpu")
+        serve_s2_second(cpu_whole, inp)
+        for group, sids in (("RankK", ids[0:4]), ("Sparse", ids[4:8]), ("AppendRows", ids[8:12]),
+                            ("Window", ids[12:16])):
+            got, want = stream_stack(whole, sids), stream_stack(cpu_whole, sids)
+            require(all(bool(torch.isfinite(x).all()) for x in got), f"{label2}: non-finite")
+            check_pair(f"(s2) {group} streams: card vs CPU", got, want, SERVE_S2_TOL[group])
+
+        # (s3) a larger deployment, then the merge of its 64 streams
+        d3 = inp["s3"]
+        ids3 = [f"s{i}" for i in range(SERVE_S3["streams"])]
+        s3 = {}
+
+        def run3():
+            svc = serve_streams(api, serve, d3, method="fused", dtype=f32, mif=2, device=dev,
+                                max_batch=SERVE_S3["streams"])
+            serve_rounds(svc, d3["rounds"])
+            svc.drain()
+            obs.start_tracing()
+            obs.clear_trace()
+            try:
+                s3["merged"] = svc.merge_streams(ids3)
+                torch.cuda.synchronize()
+            finally:
+                obs.stop_tracing()
+            # the same deployment in float64, rounds and merge, for the
+            # reference's merge tolerance
+            svc64 = serve_streams(api, serve, d3, method="fused", dtype=f64, mif=2, device=dev,
+                                  max_batch=SERVE_S3["streams"])
+            serve_rounds(svc64, d3["rounds"])
+            s3["merged64"] = svc64.merge_streams(ids3)
+            s3["svc64"] = svc64
+            s3["levels"] = sum(1 for e in obs.trace_events() if e["name"] == "merge_level")
+            obs.clear_trace()
+            return svc
+
+        svc3 = drive("s3 B64 and merge", run3)
+        label3 = (f"(s3) fused float32 {SERVE_S3['streams']} streams m{SERVE_S3['m']} "
+                  f"n{SERVE_S3['n']} r{SERVE_S3['r']}, {SERVE_S3['rounds']} rounds")
+        got3 = stream_stack(svc3, ids3)
+        require(all(bool(torch.isfinite(x).all()) for x in got3), f"{label3}: non-finite")
+        cpu3 = serve_streams(api, serve, d3, method="fused", dtype=f32, mif=2, device="cpu",
+                             max_batch=SERVE_S3["streams"])
+        serve_rounds(cpu3, d3["rounds"])
+        cpu3.drain()
+        want3 = stream_stack(cpu3, ids3)
+        check_pair(f"{label3}: card vs CPU", got3, want3, SERVE_F32_TOL)
+        merged, merged64 = s3["merged"], s3["merged64"]
+        r3 = SERVE_S3["r"]
+        require(tuple(merged.u.shape) == (SERVE_S3["streams"] * SERVE_S3["m"], r3)
+                and s3["levels"] == 6, f"{label3}: merge gave u {tuple(merged.u.shape)} in "
+                f"{s3['levels']} levels")
+        # the truth: the stacked matrix (rank 32 by construction) and its
+        # top-32 SVD, from the eigenpairs of its Gram matrix in float64
+        def truth(svc):
+            stacked = torch.cat([(svc.state(s).u.double() * svc.state(s).s.double())
+                                 @ svc.state(s).v.double().mT for s in ids3])
+            evals, evecs = torch.linalg.eigh(stacked.mT @ stacked)
+            sig_ = evals.flip(0).clamp(min=0).sqrt()
+            v_ = evecs.flip(1)[:, :r3]
+            return stacked, sig_, (stacked @ v_) / sig_[:r3], v_
+
+        def merge_err_for(svc):
+            """The distance of a merge to the top-32 SVD of ``svc``'s stacked
+            streams, M_32: max(|s - s_M| / s_M, the RMS sine of the angles to
+            U_M's and to V_M's span, ||U S V^T - M_32||_F / ||M_32||_F)."""
+            stacked, sig, u_t, v_t = truth(svc)
+            del stacked
+            m32 = (u_t * sig[:r3]) @ v_t.mT
+
+            def span_err(want, got):
+                q = torch.linalg.qr(got.double()).Q
+                return float((q - want @ (want.mT @ q)).norm()) / r3 ** 0.5
+
+            def err(u, s, v):
+                rec = float(((u.double() * s.double()) @ v.double().mT - m32).norm() / m32.norm())
+                sig_e = float(((s.double() - sig[:r3]).abs() / sig[:r3]).max())
+                return max(rec, sig_e, span_err(u_t, u), span_err(v_t, v))
+
+            return err, sig
+
+        def rows_cut(u):
+            """U with the last stream's rows zeroed (a planted fault)."""
+            return torch.cat([u[:-SERVE_S3["m"]], torch.zeros_like(u[-SERVE_S3["m"]:])])
+
+        merge_what = ("vs the stacked matrix's top-32 SVD, max(|s - s_M| / s_M, RMS sine to "
+                      "U_M's and V_M's spans, ||U S V^T - M_32||_F / ||M_32||_F)")
+        err64, sig = merge_err_for(s3["svc64"])
+        log(f"  {label3}: the float64 deployment's stacked matrix has sigma_33 / sigma_1 = "
+            f"{float(sig[r3] / sig[0]):.2e}, its closest singular values "
+            f"{float(((sig[:r3 - 1] - sig[1:r3]) / sig[:r3 - 1]).min()):.2e} apart (relative)")
+        # float64 at the reference's merge tolerance (relative)
+        check(f"(s3) the same deployment in float64: merge_streams {merge_what}",
+              err64(merged64.u, merged64.s, merged64.v), SERVE_MERGE_F64_LIMIT)
+        flip_u = merged64.u.clone()
+        flip_u[:, 0] = -flip_u[:, 0]
+        faults = [("float64: sign of the largest triplet flipped",
+                   err64(flip_u, merged64.s, merged64.v), SERVE_MERGE_F64_LIMIT),
+                  ("float64: the last stream's rows left out",
+                   err64(rows_cut(merged64.u), merged64.s, merged64.v), SERVE_MERGE_F64_LIMIT)]
+        del err64
+        err32, _ = merge_err_for(svc3)
+        # float32, the drive's own merge, by the same measures
+        check(f"{label3}: merge_streams of the {SERVE_S3['streams']} streams ({s3['levels']} "
+              f"levels) {merge_what}", err32(merged.u, merged.s, merged.v), SERVE_MERGE_LIMIT)
+        turned_v = merged.v.clone()
+        turned_v[:, 0] = merged.v[:, 0] + 0.01 * torch.randn_like(merged.v[:, 0])
+        faults += [("float32: V's largest vector moved by 1 %",
+                    err32(merged.u, merged.s, turned_v), SERVE_MERGE_LIMIT),
+                   ("float32: the largest singular value 1 % off",
+                    err32(merged.u, merged.s * torch.cat([merged.s.new_tensor([1.01]),
+                                                         merged.s.new_ones(r3 - 1)]),
+                          merged.v), SERVE_MERGE_LIMIT),
+                   ("float32: the last stream's rows left out",
+                    err32(rows_cut(merged.u), merged.s, merged.v), SERVE_MERGE_LIMIT)]
+        for what, e, limit in faults:
+            log(f"    planted fault, {what}: {e:.3e} (limit {limit:.3g})")
+            require(e > limit, f"{label3}: the merge check passes a planted fault ({what})")
+        del err32
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        return {"inputs": inp, "ids": ids, "ids3": ids3, "svc3": svc3}
+
+    def count_syncs(fn):
+        """Host waits for the device while ``fn`` runs, as
+        ``torch.cuda.set_sync_debug_mode`` reports them: (count, {file:line: count})."""
+        import collections
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        where = collections.Counter("/".join(Path(w.filename).parts[-2:]) + f":{w.lineno}"
+                                    for w in caught
+                                    if "called a synchronizing CUDA operation" in str(w.message))
+        return sum(where.values()), dict(where)
+
+    def service_times(ctx):
+        """Phase 4's service rows: per route and dtype at (s1) the ms of a flush
+        round by CUDA events over a run of rounds (enqueues included), the
+        device's busy time in it by the profiler, the host's waits for the
+        device in one round, and the host time of an enqueue; then save,
+        restore and warm at (s2), and (s3)'s round and merge."""
+        import shutil
+
+        from repro_torch import serve
+        from repro_torch.core import engine as ENG
+
+        inp, ids = ctx["inputs"], ctx["ids"]
+        d1 = inp["s1"]
+        rows = []
+
+        for method in SERVE_METHODS:
+            # the phase chain's rounds take a fifth of a second: time 2 of them
+            timed = d1["rounds"] if method == "fused" else d1["rounds"][:2]
+            nround = len(timed)
+            for dt in (torch.float64, torch.float32):
+                dn = name_of(dt)
+                svc = serve_streams(api, serve, d1, method=method, dtype=dt, mif=2, device=dev)
+                serve_rounds(svc, d1["rounds"][:1])        # warm: every geometry seen
+                svc.drain()
+
+                def rounds(svc_=svc, timed_=timed):
+                    serve_rounds(svc_, timed_)
+                    svc_.drain()
+
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                e0.record()
+                rounds()
+                e1.record()
+                torch.cuda.synchronize()
+                round_ms = e0.elapsed_time(e1) / nround
+                busy_ms, busy_split = device_ms(rounds, n=1, warm=False)
+                source = "CUDA events" if EVENTS_KEY in busy_split else "profiler"
+                share = busy_ms / (round_ms * nround)
+                syncs, where = count_syncs(lambda s_=svc: serve_rounds(s_, d1["rounds"][:1]))
+                svc.drain()
+                enq = []
+                for a, b in d1["rounds"][0][:-1]:          # 15 enqueues that flush nothing
+                    t = time.perf_counter()
+                    svc.enqueue(ids[len(enq)], a, b)
+                    enq.append((time.perf_counter() - t) * 1e6)
+                svc.drain()
+                row = {"route": method, "dtype": dn, "shape": "16 streams m512 n768 r16",
+                       "round_ms": round_ms, "device_busy_ms_per_round": busy_ms / nround,
+                       "device_share": share, "device_source": source,
+                       "syncs_per_round": syncs,
+                       "sync_sites": where,
+                       "enqueue_us": statistics.median(enq)}
+                rows.append(row)
+                log(f"  service (s1) {method} {dn}: {round_ms:.3f} ms a flush round (events, "
+                    f"16 pairs enqueued and flushed), device busy {busy_ms / nround:.3f} ms of it "
+                    f"({100 * share:.1f} %, {source}), {syncs} host waits a "
+                    f"round {where or ''}, "
+                    f"enqueue {row['enqueue_us']:.1f} us")
+
+        # (s2): save, restore (load + warm) and warm alone, host clock
+        ckpt_dir = ROOT / "build" / "chip_smoke_service_ckpt"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        part = serve_s2_first(api, serve, updates, inp, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        part.save(ckpt_dir, step=1)
+        save_s = time.perf_counter() - t
+        for eng in ENG._default_engines.values():
+            eng.cache_clear()
+        t = time.perf_counter()
+        _, resumed = serve.SvdService.restore(ckpt_dir, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        for eng in ENG._default_engines.values():
+            eng.cache_clear()
+        t = time.perf_counter()
+        resumed.warm(device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        rows.append({"route": "fused", "dtype": "float64", "shape": "(s2) 16 streams, "
+                     f"{part.pending()} events pending", "save_s": save_s,
+                     "restore_s": restore_s, "warm_s": warm_s,
+                     "warmed_entries": len(resumed._warmed)})
+        log(f"  service (s2): save {save_s:.3f} s, restore {restore_s:.3f} s (load and warm "
+            f"{len(resumed._warmed)} entries), warm alone {warm_s:.3f} s (libraries loaded)")
+
+        # (s3): a flush round at B64 and the merge of the 64 streams
+        d3, ids3, svc3 = inp["s3"], ctx["ids3"], ctx["svc3"]
+
+        def round3(svc_=svc3):
+            serve_rounds(svc_, d3["rounds"][:1])
+            svc_.drain()
+
+        b_ms = time_ms(round3)
+        merge_ms = time_ms(lambda: svc3.merge_streams(ids3))
+        merge_dev, merge_split = device_ms(lambda: svc3.merge_streams(ids3), n=2)
+        rows.append({"route": "fused", "dtype": "float32", "shape": "(s3) 64 streams m1024 n4096 r32",
+                     "round_ms": b_ms, "merge_ms": merge_ms, "merge_device_ms": merge_dev})
+        log(f"  service (s3) fused float32 B64: {b_ms:.3f} ms a flush round; merge_streams of 64 "
+            f"streams {merge_ms:.2f} ms (device busy {merge_dev:.2f} ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(merge_split.items(),
+                                                           key=lambda kv: -kv[1])[:4]) + ")")
+        return rows
 
     # -- phase 2: kernels against their plain versions --------------------------
     log("kernels vs plain:")
@@ -862,23 +1480,6 @@ def main() -> int:
 
     # -- phase 3b: the structured-update path (api.apply / api.apply_many) -----
     log("structured updates (api.apply / api.apply_many), default policy:")
-    drive_launches = {}
-    drive_timing = []
-
-    def drive(name, fn):
-        """Run one drive with the counters zeroed just before and read just
-        after; they must equal the planner's counts."""
-        _build.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        got = dict(_build.LAUNCHES)
-        drive_launches[name] = got
-        log(f"  drive {name}: launches {got}")
-        for kname, want_n in DRIVE_LAUNCHES[name].items():
-            require(got[kname] == want_n,
-                    f"drive {name}: {kname} launched {got[kname]} times, expected {want_n}")
-        return out
-
     def stacked(sts, device="cpu"):
         return [torch.stack([getattr(x, f) for x in sts]).to(device) for f in ("u", "s", "v")]
 
@@ -1082,58 +1683,12 @@ def main() -> int:
             f"reads {reading:.3e})")
         require(np.isfinite(e) and e <= limit, f"{label}: {e} from the truth, above {limit}")
 
+    # -- phase 3d: the streaming service --------------------------------------------
+    service_ctx = service_phase()
+
     # -- phase 4: times -------------------------------------------------------------
     log(f"times (median of CUDA events after warm-up), from {time.perf_counter() - t_run:.0f} s "
         f"into the run:")
-
-    def time_ms(fn, budget_ms=1500.0):
-        # one untimed call warms up and sizes the count: at least 3 timed calls
-        # where a call takes under half a second, 2 for the second-long routes
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        once = (time.perf_counter() - t) * 1e3
-        reps = int(min(30, max(3 if once < 500 else 2, budget_ms / max(once, 1e-3))))
-        times = []
-        for _ in range(reps):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return statistics.median(times)
-
-    def device_ms(fn, n=20):
-        """Device time per call from torch.profiler (CUDA activity): the sum
-        over the kernels the call launches, and each kernel's share."""
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        split = {}
-        for ev in prof.key_averages():
-            if ev.device_time_total > 0:
-                name = ev.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-                name = name.split("(")[0].split("<")[0].strip()[:40]
-                split[name] = split.get(name, 0.0) + ev.device_time_total / n / 1e3
-        require(split, "torch.profiler saw no device time")
-        return sum(split.values()), split
-
-    def host_ms(fn, n=50):
-        """Host time to enqueue one call (no synchronisation inside the loop)."""
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        out = (time.perf_counter() - t) / n * 1e3
-        torch.cuda.synchronize()
-        return out
 
     def phase_ops(k):
         # secular: k roots x k poles per sweep, 5 operations per pair in a
@@ -1367,7 +1922,9 @@ def main() -> int:
     for label, fn in drive_timing:
         drive_rows.append({"drive": label, "ms": time_ms(fn)})
         log(f"  drive {label}: {drive_rows[-1]['ms']:.3f} ms end to end")
+    service_rows = service_times(service_ctx)
     log("timings " + json.dumps({"timings": rows + f_rows + d_rows + e_rows, "drives": drive_rows,
+                                 "service": service_rows,
                                  "routes": route_rows, "drive_launches": drive_launches,
                                  "fmm_overflowed": fmm_overflows, "card": card}))
 

@@ -7,7 +7,10 @@
     states = api.update_many(states, A_vecs, B_vecs)  # grouped and batched
     state  = api.apply(state, op)                     # structured update (repro_torch.updates)
     states = api.apply_many(states, ops)              # same-plan groups batched
+    api.warmup(policy, m=512, n=768, rank=16, batch=16)   # ready a route before traffic
 """
+
+from repro_torch.api.cache import compilation_cache_entries, enable_compilation_cache
 
 from repro_torch.api.policy import METHODS, UpdatePolicy
 from repro_torch.api.state import SvdState, as_state
@@ -28,6 +31,8 @@ __all__ = [
     "apply",
     "apply_many",
     "as_state",
+    "compilation_cache_entries",
+    "enable_compilation_cache",
     "engine_for",
     "update",
     "update_many",

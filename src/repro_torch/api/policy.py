@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core.eigh_update import FMM_MIN_N
 
-__all__ = ["UpdatePolicy", "METHODS", "FMM_MIN_N", "as_torch_dtype"]
+__all__ = ["UpdatePolicy", "METHODS", "FMM_MIN_N", "as_torch_dtype", "policy_from_legacy"]
 
 # "pallas" is the public name of the Cauchy-kernel route (engine name
 # "kernel"); "fast" is the reference's host-side benchmark baseline.
@@ -52,10 +52,16 @@ class UpdatePolicy:
     sketch_oversample   extra range-finder samples beyond a sketch's rank
     sketch_power_iters  power iterations of the dense range-finder
     mesh           not ported (ROADMAP A7); must be None
+    batch_axis     the mesh axis a batch would be spread over (recorded, as
+                   in the reference; no mesh placement yet, ROADMAP A7)
     truncate_to    keep only the top-r triplets of every result
+    health_every   sample the numerical-health probes (``repro_torch.obs``)
+                   every N flush rounds of the service (None = never)
 
     The sketch knobs key the planner's schedule cache (``sketch_params``), not
     the engine: the rank-1 update itself does not depend on them.
+    ``batch_axis`` and ``health_every`` key nothing: the probes run outside
+    the update, after its launches, so the cadence cannot change a result.
 
     >>> pol = UpdatePolicy(method="fmm", fmm_p=12)
     >>> pol.replace(truncate_to=8).truncate_to
@@ -73,7 +79,9 @@ class UpdatePolicy:
     sketch_oversample: int = 8
     sketch_power_iters: int = 1
     mesh: Any = None
+    batch_axis: str = "data"
     truncate_to: int | None = None
+    health_every: int | None = None
 
     def __post_init__(self):
         if self.method not in METHODS:
@@ -84,6 +92,8 @@ class UpdatePolicy:
             raise ValueError(f"sketch_oversample must be >= 0; got {self.sketch_oversample}")
         if self.sketch_power_iters < 0:
             raise ValueError(f"sketch_power_iters must be >= 0; got {self.sketch_power_iters}")
+        if self.health_every is not None and self.health_every < 1:
+            raise ValueError(f"health_every must be >= 1 or None; got {self.health_every}")
         if self.storage_dtype is not None:
             object.__setattr__(self, "storage_dtype", as_torch_dtype(self.storage_dtype))
 
@@ -125,3 +135,13 @@ class UpdatePolicy:
         """``(oversample, power_iters)``: the schedule-cache fold of the
         range-finder knobs (``updates.planner.lower``)."""
         return (self.sketch_oversample, self.sketch_power_iters)
+
+
+def policy_from_legacy(policy: UpdatePolicy | None, method: str = "direct", mesh: Any = None,
+                       batch_axis: str = "data") -> UpdatePolicy:
+    """The policy a layer that still takes the reference's legacy ``method=``
+    / ``mesh=`` / ``batch_axis=`` keywords runs under: ``policy`` when given,
+    else one built from them."""
+    if policy is not None:
+        return policy
+    return UpdatePolicy(method=method, mesh=mesh, batch_axis=batch_axis)

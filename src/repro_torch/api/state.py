@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["SvdState", "as_state", "resolve_device"]
+__all__ = ["SvdState", "as_state", "like_container", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -157,6 +157,13 @@ class SvdState:
         """Dense ``A = u @ diag(s) @ v_k^T`` (full states use ``v[:, :m]``)."""
         v = self.v[..., :, : self.rank]
         return (self.u * self.s[..., None, :]) @ v.mT
+
+
+def like_container(tmpl, u, s, v):
+    """``(u, s, v)`` in the container type of ``tmpl`` (``SvdState`` or
+    ``TruncatedSvd``): layers that transform a caller's container hand the
+    same type back."""
+    return type(tmpl)(u, s, v)
 
 
 def as_state(obj) -> SvdState:

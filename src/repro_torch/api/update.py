@@ -13,9 +13,9 @@ geometry and the policy:
 ``update_rank_k`` applies k rank-1 pairs in order through the engine's
 rank-k entry points; ``apply`` / ``apply_many`` (structured updates) live in
 ``updates.planner`` and are reached from here lazily, since the planner
-builds on this module.  The update runs on the state's device.  Not ported,
-and refused by name: mesh placement (ROADMAP A7), ``warmup`` (ROADMAP A2,
-remainder).
+builds on this module.  The update runs on the state's device.  ``warmup``
+readies a (policy, geometry) pair before traffic (``SvdEngine.warmup``).
+Not ported, and refused by name: mesh placement (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -183,5 +183,33 @@ def apply_many(states: Sequence, ops: Sequence, policy: UpdatePolicy | None = No
     return planner.apply_many(states, ops, policy)
 
 
-def warmup(policy: UpdatePolicy, **kwargs):
-    raise NotImplementedError("warmup is not ported yet (ROADMAP A2, remainder)")
+def warmup(policy: UpdatePolicy, *, m: int, n: int, batch: int | None = None,
+           rank: int | None = None, k: int | None = None, dtype=torch.float32, cache_dir=None,
+           device="cuda"):
+    """Ready the engine a (policy, geometry) pair will use before traffic
+    arrives (serving cold-start control): its geometry-cache entry and, on a
+    card, the built and loaded libraries of the route's kernels.
+    ``rank=None`` warms the full route, else the truncated one;
+    ``batch=None`` the single form; ``k`` the rank-k form.  With
+    ``policy.storage_dtype`` set the warmed geometry uses the storage dtype.
+
+    ``cache_dir`` points the kernels' build cache there
+    (``api.cache.enable_compilation_cache``): a later process warming the
+    same route loads the libraries compiled there instead of running nvcc.
+
+    >>> from repro_torch import api
+    >>> pol = api.UpdatePolicy(method="direct")
+    >>> info = api.warmup(pol, m=4, n=5, rank=2, dtype=torch.float64, device="cpu")
+    >>> info.entries >= 1
+    True
+    """
+    if cache_dir is not None:
+        from repro_torch.api.cache import enable_compilation_cache
+
+        enable_compilation_cache(cache_dir)
+    if policy.mesh is not None:
+        raise NotImplementedError("mesh-sharded updates are not ported yet (ROADMAP A7)")
+    if policy.storage_dtype is not None:
+        dtype = policy.storage_dtype
+    eng = engine_from_key(policy, n if rank is None else rank + 1, m=m, n=n, rank=rank)
+    return eng.warmup(batch=batch, m=m, n=n, rank=rank, k=k, dtype=dtype, device=device)

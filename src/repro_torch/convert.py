@@ -14,7 +14,8 @@ import torch
 from repro_torch.api.policy import as_torch_dtype
 from repro_torch.api.state import SvdState, resolve_device
 
-__all__ = ["state_from_arrays", "state_to_arrays"]
+__all__ = ["snapshot_from_reference", "snapshot_to_reference", "state_from_arrays",
+           "state_to_arrays"]
 
 _FIELDS = ("u", "s", "v", "d_left", "d_right")
 
@@ -43,3 +44,21 @@ def state_to_arrays(state: SvdState) -> dict[str, np.ndarray]:
             x = x.detach().cpu()
             out[f] = (x.float() if x.dtype.itemsize <= 2 else x).numpy()
     return out
+
+
+def snapshot_from_reference(leaves, aux: dict):
+    """The port's ``ServiceSnapshot`` of a reference snapshot's leaves (numpy,
+    in its pytree order) and aux spec; restore it with
+    ``SvdService.from_snapshot(snap, device=...)``."""
+    from repro_torch.serve.svd_service import ServiceSnapshot
+
+    return ServiceSnapshot.from_leaves([np.asarray(x) for x in leaves], aux)
+
+
+def snapshot_to_reference(snap) -> tuple[list, dict]:
+    """``(leaves, aux)`` of a port ``ServiceSnapshot``: the leaves as numpy
+    arrays in the reference's pytree order (tensors copied to the host, dtype
+    kept) and the aux spec."""
+    from repro_torch.train.checkpoint import _to_numpy
+
+    return [_to_numpy(x) for x in snap.leaves()], snap.aux()

@@ -2,8 +2,12 @@
 
 Counterpart of ``repro.core.engine``.  PyTorch runs eagerly, so there is no
 executable to cache: the engine keeps the reference's geometry-keyed cache
-accounting (``cache_info``: hits, misses, entries as plain integers) and runs
-Algorithm 6.1 over a leading batch dimension.  Single updates add and remove
+accounting (``cache_info``: hits, misses, entries as plain integers, mirrored
+into the ``engine_plan_cache_hits`` / ``_misses`` counters when observability
+is on) and runs Algorithm 6.1 over a leading batch dimension.  ``warmup``
+fills that cache for a geometry and builds the CUDA libraries the route will
+launch (``kernels._build.library``), so that the first call under traffic
+compiles nothing.  Single updates add and remove
 that dimension.  The rank-k entry points (the reference's ``lax.scan`` of k
 rank-1 updates) are a Python loop of k calls to the same rank-1 body.  Mesh
 dispatch is not ported (ROADMAP A7).
@@ -24,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core.svd_update import (
     SvdUpdateResult,
     TruncatedSvd,
@@ -37,11 +42,19 @@ __all__ = [
     "default_engine",
     "group_indices",
     "stack_trees",
+    "truncated_geometry",
     "unstack_tree",
 ]
 
 # torch's float32 matmul precisions; None is "highest" (no TF32)
 _PRECISION = {None: "highest", "highest": "highest", "high": "high", "medium": "medium"}
+
+
+def truncated_geometry(tsvd) -> tuple:
+    """Batching-group key of a truncated state, ``(m, n, rank, dtype)``: states
+    sharing it (on one device) stack into one ``update_truncated_batch``."""
+    m, r = tsvd.u.shape
+    return (m, tsvd.v.shape[0], r, tsvd.u.dtype)
 
 
 def group_indices(keys) -> dict:
@@ -110,6 +123,7 @@ class SvdEngine:
         self.compute_dtype = (torch.float32 if storage_dtype is not None
                               and storage_dtype.itemsize <= 2 else None)
         self._geometries: set = set()
+        self._built: set = set()     # (geometry key, device type) warmed
         self._hits = 0
         self._misses = 0
         self._lock = threading.Lock()
@@ -120,16 +134,21 @@ class SvdEngine:
     def cache_clear(self) -> None:
         with self._lock:
             self._geometries.clear()
+            self._built.clear()
             self._hits = 0
             self._misses = 0
 
     def _count(self, key: tuple) -> None:
         with self._lock:
-            if key in self._geometries:
+            hit = key in self._geometries
+            if hit:
                 self._hits += 1
             else:
                 self._misses += 1
                 self._geometries.add(key)
+        if _obs.enabled():
+            _obs.registry().counter(
+                "engine_plan_cache_hits" if hit else "engine_plan_cache_misses").inc()
 
     @contextlib.contextmanager
     def _precision(self):
@@ -233,6 +252,61 @@ class SvdEngine:
                              f"got {tuple(tsvd.u.shape)}")
         self._count(_geometry("trunc_rank_k_batch", tsvd.u, tsvd.s, tsvd.v, va, vb))
         return self._trunc_k(TruncatedSvd(tsvd.u, tsvd.s, tsvd.v), va, vb)
+
+
+    # -- warmup ---------------------------------------------------------------
+
+    def warmup(self, *, batch: int | None, m: int, n: int, rank: int | None = None,
+               k: int | None = None, dtype=torch.float32, device="cuda") -> EngineCacheInfo:
+        """Warm one geometry before traffic: its entry in the geometry cache
+        (counted as the reference counts its AOT compile: one miss, then
+        hits), and, on a CUDA device, the libraries of the kernels the route
+        launches, built and loaded, with the fused kernels' launch plan for
+        the batch.  ``rank=None`` warms the full update, else the truncated
+        one; ``batch=None`` the single form; ``k`` the rank-k form.  The key
+        includes ``dtype``: warm with the dtype real traffic stores.  Returns
+        ``cache_info()``."""
+        from repro_torch.api.policy import as_torch_dtype
+        from repro_torch.api.state import resolve_device
+
+        dev = resolve_device(device)
+        dt = as_torch_dtype(dtype)
+        lead = () if batch is None else (batch,)
+        pair = ((m,), (n,)) if k is None else ((k, m), (k, n))
+        if rank is None:
+            leaves = ((m, m), (m,), (n, n))
+            kind = ("single", "batch", "rank_k", "rank_k_batch")[(batch is not None) + 2 * (k is not None)]
+        else:
+            leaves = ((m, rank), (rank,), (n, rank))
+            kind = ("trunc", "trunc_batch", "trunc_rank_k",
+                    "trunc_rank_k_batch")[(batch is not None) + 2 * (k is not None)]
+        key = (kind,) + tuple((lead + shp, dt) for shp in leaves + pair)
+        self._count(key)
+        if (key, dev.type) not in self._built:
+            span_kw = {} if rank is None else {"rank": rank}
+            with _obs.span("aot_warmup", kind=kind, batch=batch or 0, m=m, n=n, **span_kw,
+                           k=k or 0):
+                if dev.type == "cuda":
+                    self._build_route(batch or 1, m, n, rank, dt)
+            with self._lock:
+                self._built.add((key, dev.type))
+        return self.cache_info()
+
+    def _build_route(self, bsz: int, m: int, n: int, rank: int | None, dt: torch.dtype) -> None:
+        """Build and load the libraries of the kernels this engine's route
+        launches for the geometry (the phase chain launches none)."""
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import fused_update as FU
+
+        if self.method == "fused":
+            cdt = self.compute_dtype if self.compute_dtype is not None else FU._compute_dtype_for(dt)
+            suffix = FU._SUFFIX[(dt, cdt)]
+            _build.library(f"fused_update_{suffix}")
+            FU.launch_plan(suffix, bsz, m, n, rank)
+        elif self.method == "kernel":
+            _build.library("cauchy_matmul")
+        elif self.method == "fmm":
+            _build.library("nearfield")
 
 
 _default_engines: dict[tuple, SvdEngine] = {}

@@ -94,12 +94,28 @@ def deflate(d, z, rho, *, rtol: float | None = None) -> DeflationResult:
                            any_rot, compact)
 
 
+# the widest problem whose Givens loop runs on a card without asking the host
+GIVENS_LOOP_MAX = 64
+
+
 def apply_givens_columns(w, a_idx, b_idx, c, s, any_rot):
     """Apply the recorded deflation rotations to the columns of ``w`` (B, m, n)
     in forward order: ``col_a' = c col_a + s col_b``, ``col_b' = -s col_a +
-    c col_b``.  Batch elements without a rotation are left as they are."""
+    c col_b``.  Batch elements without a rotation are left as they are.
+
+    The loop costs about eight launches a coordinate.  Up to
+    ``GIVENS_LOOP_MAX`` coordinates (the service's truncated cores, k = r + 1)
+    it runs on a card whether or not a member rotates, and ``any_rot``
+    selects per member, as the reference's ``lax.cond`` decides on the
+    device: asking the host would wait for the device and make an
+    asynchronous round synchronous.  Above it, and always on the CPU, the
+    host asks once whether any member rotates and skips the loop when none
+    does: there the phase chain is host-bound, so the device has caught up
+    by the time the host asks, and the wait is cheaper than the launches."""
     bsz, m, n = w.shape
-    if n < 2 or not bool(torch.any(any_rot)):
+    if n < 2:
+        return w
+    if (not w.is_cuda or n > GIVENS_LOOP_MAX) and not bool(torch.any(any_rot)):
         return w
     out = w.clone()
     rows = torch.arange(bsz, device=w.device)

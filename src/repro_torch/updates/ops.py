@@ -101,7 +101,13 @@ def _delete(a_mat: torch.Tensor, idx: tuple, dim: int) -> torch.Tensor:
 
 
 class UpdateOp:
-    """Base class (isinstance anchor) for structured-perturbation ops."""
+    """Base class (isinstance anchor) for structured-perturbation ops.
+
+    ``tree_fields`` names the fields that hold data (``None``: every field),
+    in the reference's pytree order: they are the op's leaves in a service
+    snapshot (``train.checkpoint``); the other fields are structure."""
+
+    tree_fields = None
 
     def apply_dense(self, a_mat) -> torch.Tensor:
         """Exact reference semantics on a dense matrix."""
@@ -264,6 +270,8 @@ class DenseDelta(UpdateOp):
     ('dense_delta', 1)
     """
 
+    tree_fields = ("delta",)
+
     delta: Any
     rank: int = 1
 
@@ -302,6 +310,8 @@ class Sparse(UpdateOp):
             [ 0.,  0.],
             [-1.,  0.]], dtype=torch.float64)
     """
+
+    tree_fields = ("rows", "cols", "vals")
 
     rows: Any
     cols: Any
@@ -366,6 +376,8 @@ class RemoveRows(UpdateOp):
     ((0, 2), ('remove_rows', (0, 2)), (2, 3))
     """
 
+    tree_fields = ()
+
     idx: tuple
 
     def __post_init__(self):
@@ -399,6 +411,8 @@ class RemoveCols(UpdateOp):
     ((1,), ('remove_cols', (1,)), (2, 2))
     """
 
+    tree_fields = ()
+
     idx: tuple
 
     def __post_init__(self):
@@ -431,6 +445,8 @@ class Window(UpdateOp):
     >>> op.spec(), op.out_shape(5, 3), op.out_shape(1, 3)
     (('window', 2), (2, 3), (1, 3))
     """
+
+    tree_fields = ("lam",)
 
     size: int
     lam: Any = 1.0

@@ -25,8 +25,10 @@ geometry, rank, is_full, sketch_params)`` (``schedule_cache_info``).
 
 Op data moves to the state's device (and dtype; float32 for 16-bit storage)
 when a step binds it, so a ``Sparse`` op applied to a state on the card runs
-its projections through kernel F.  Not ported: the reference's
-observability hooks (ROADMAP A6) and ``warmup_plan`` (ROADMAP A2, remainder).
+its projections through kernel F.  With observability on, ``lower`` counts
+``planner_schedule_cache_hits`` / ``_misses`` and times each new schedule
+under a ``schedule_compile`` span; ``warmup_plan`` readies every engine
+geometry and sketch a schedule will run, before traffic.
 """
 
 from __future__ import annotations
@@ -37,11 +39,12 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.api.policy import UpdatePolicy
 from repro_torch.api.state import SvdState, as_state
-from repro_torch.api.update import update, update_rank_k
+from repro_torch.api.update import update, update_rank_k, warmup
 from repro_torch.updates.ops import AppendCols, AppendRows, DenseDelta, Sparse, UpdateOp
-from repro_torch.updates.sketch import sketch_svd, sparse_sketch_svd
+from repro_torch.updates.sketch import sketch_svd, sparse_sketch_svd, warmup_sketch
 
 __all__ = [
     "apply",
@@ -209,9 +212,16 @@ def lower(op: UpdateOp, state, policy: UpdatePolicy | None = None) -> tuple:
         plan = _cache.get(key)
         if plan is not None:
             _hits += 1
-            return plan
-        _misses += 1
-    steps, _ = _build(key[0], st.m, st.n, st.rank, st.is_full, ())
+        else:
+            _misses += 1
+    if plan is not None:
+        if _obs.enabled():
+            _obs.registry().counter("planner_schedule_cache_hits").inc()
+        return plan
+    if _obs.enabled():
+        _obs.registry().counter("planner_schedule_cache_misses").inc()
+    with _obs.span("schedule_compile", op=key[0][0], m=st.m, n=st.n, rank=st.rank):
+        steps, _ = _build(key[0], st.m, st.n, st.rank, st.is_full, ())
     plan = tuple(steps)
     with _lock:
         _cache[key] = plan
@@ -525,5 +535,74 @@ def apply_many(states: Sequence, ops: Sequence[UpdateOp],
     return tuple(out)
 
 
-def warmup_plan(policy: UpdatePolicy, op: UpdateOp, **kwargs):
-    raise NotImplementedError("warmup_plan is not ported yet (ROADMAP A2, remainder)")
+def _sketch_sites(spec: tuple, m: int, n: int):
+    """Sketch geometries ``(m, n, k, nnz-or-None)`` the schedule will run,
+    threading geometry through appends exactly like ``_build``."""
+    kind = spec[0]
+    if kind == "dense_delta":
+        return [(m, n, spec[1], None)], (m, n)
+    if kind == "sparse":
+        return [(m, n, spec[2], spec[1])], (m, n)
+    if kind == "append_rows":
+        sites = [(spec[1], n, spec[2], None)] if spec[3] == "dense" else []
+        return sites, (m + spec[1], n)
+    if kind == "append_cols":
+        sites = [(m, spec[1], spec[2], None)] if spec[3] == "dense" else []
+        return sites, (m, n + spec[1])
+    if kind == "remove_rows":
+        return [], (m - len(spec[1]), n)
+    if kind == "remove_cols":
+        return [], (m, n - len(spec[1]))
+    if kind == "window":
+        return [], (min(m, spec[1]), n)
+    if kind == "compose":
+        sites: list = []
+        for child in spec[1]:
+            sub, (m, n) = _sketch_sites(child, m, n)
+            sites.extend(sub)
+        return sites, (m, n)
+    return [], (m, n)  # rank_k / decay: no extraction
+
+
+def warmup_plan(policy: UpdatePolicy, op: UpdateOp, *, m: int, n: int, rank: int | None = None,
+                batch: int | None = None, dtype=torch.float64, device="cuda"):
+    """Ready every engine geometry ``op``'s schedule will dispatch (appends
+    shift the geometry mid-schedule; each distinct one is warmed) and every
+    sketch the schedule's extractions run (``sketch.warmup_sketch``), on
+    ``device``.  Returns the list of ``(m, n)`` geometries warmed, as the
+    reference's does.
+
+    >>> from repro_torch.updates.ops import AppendRows, Compose, Decay
+    >>> op = Compose((Decay(0.9), AppendRows(np.zeros((2, 6)))))
+    >>> warmup_plan(UpdatePolicy(method="direct"), op, m=4, n=6, rank=2, device="cpu")
+    [(6, 6)]
+    """
+    r = rank if rank is not None else m
+    spec = op.spec()
+    oversample, power_iters = _sketch_params(policy)
+    for sm, sn, sk, snnz in _sketch_sites(spec, m, n)[0]:
+        warmup_sketch(m=sm, n=sn, k=sk, nnz=snnz, batch=batch, oversample=oversample,
+                      power_iters=power_iters, dtype=dtype, device=device)
+    steps, _ = _build(spec, m, n, r, rank is None, ())
+    geoms: list[tuple[int, int]] = []
+    entries: dict[tuple[int, int, int | None], UpdatePolicy | None] = {}
+    cur_m, cur_n = m, n
+    for step in steps:
+        if step[0] == "pad_rows":
+            cur_m += step[1]
+        elif step[0] == "pad_cols":
+            cur_n += step[1]
+        elif step[0] == "drop_rows":
+            cur_m -= len(step[1])
+        elif step[0] == "drop_cols":
+            cur_n -= len(step[1])
+        elif step[0] in ("rank1", "rank1_scan"):
+            k = step[3] if step[0] == "rank1_scan" else None
+            # remove steps run under the step-pinned policy (_step_policy):
+            # warm the route they will actually dispatch
+            entries.setdefault((cur_m, cur_n, k), _step_policy(policy, step))
+            if (cur_m, cur_n) not in geoms:
+                geoms.append((cur_m, cur_n))
+    for (gm, gn, k), pol in entries.items():
+        warmup(pol, m=gm, n=gn, batch=batch, rank=rank, k=k, dtype=dtype, device=device)
+    return geoms

@@ -17,8 +17,10 @@ card), then the small core ``C = (ΨᵀQ)⁻¹ (ΨᵀY) (PᵀΩ)⁻¹``.
 The test matrices are the reference's: numpy Philox draws with fixed seeds,
 bitwise the same on every platform, moved to the device once per
 (n, l, seed, dtype, device).  QR, solve and eigh go to ``torch.linalg``, as
-the reference leaves them to XLA.  Nothing is compiled ahead of time here
-(PyTorch runs eagerly), so ``warmup_sketch`` is not ported.
+the reference leaves them to XLA.  ``warmup_sketch`` runs a geometry's
+sketch once on zeros before traffic, as the reference's does: that puts the
+test matrices on the device, builds kernel F's library and initialises the
+solver libraries, so the first event under traffic pays for none of it.
 
 >>> import numpy as np
 >>> rng = np.random.default_rng(0)
@@ -173,5 +175,28 @@ def sparse_sketch_svd(rows, cols, vals, *, m: int, n: int, k: int, oversample: i
     return _topk(uc, s, p @ vc, k)
 
 
-def warmup_sketch(**kwargs):
-    raise NotImplementedError("warmup_sketch is not ported yet (ROADMAP A2, remainder)")
+def warmup_sketch(*, m: int, n: int, k: int, oversample: int = 8, power_iters: int = 1,
+                  nnz: int | None = None, batch: int | None = None, dtype=torch.float64,
+                  device="cuda"):
+    """Run one geometry's sketch on zeros on ``device`` and wait for it
+    (``planner.warmup_plan`` and the service's restore call this).
+    ``nnz=None`` warms the dense range-finder, else the sparse single-pass
+    sketch (kernel F on a card); ``batch`` the stacked form.  Returns the
+    sketch's output, as the reference's does."""
+    from repro_torch.api.policy import as_torch_dtype
+    from repro_torch.api.state import resolve_device
+
+    dev = resolve_device(device)
+    dt = as_torch_dtype(dtype)
+    lead = () if batch is None else (batch,)
+    if nnz is None:
+        out = sketch_svd(torch.zeros(lead + (m, n), dtype=dt, device=dev), k,
+                         oversample=oversample, power_iters=power_iters)
+    else:
+        # the sparse single-pass path has no power_iters knob
+        idx = torch.zeros(lead + (nnz,), dtype=torch.int32, device=dev)
+        out = sparse_sketch_svd(idx, idx, torch.zeros(lead + (nnz,), dtype=dt, device=dev),
+                                m=m, n=n, k=k, oversample=oversample)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out

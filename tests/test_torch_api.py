@@ -270,7 +270,14 @@ def test_unported_routes_raise_by_name():
         api.update(st, a, b, api.UpdatePolicy(mesh=object()))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         api.SvdState.from_factors(u, s, v, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        api.warmup(api.UpdatePolicy(), m=4, n=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        updates.warmup_plan(api.UpdatePolicy(), updates.Decay(0.5), m=4, n=6)
+    # warmup is ported (its tests: test_torch_warmup.py); the cross-card
+    # merge and the mesh-sharded service still refuse by name
+    from repro_torch import dist
+    from repro_torch.serve import SvdService
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        api.warmup(api.UpdatePolicy(mesh=object()), m=4, n=6, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        dist.distributed_merge(st, "data")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        SvdService(policy=api.UpdatePolicy(mesh=object()))

@@ -760,3 +760,143 @@ def test_secular_kernel_plan_and_refusal(cuda_device):
     with pytest.raises(ValueError, match="at most"):
         SN.secular_solve_cuda(*args)
     assert _build.LAUNCHES["secular_solve"] == before
+
+
+# -- the streaming service on the card (serve.SvdService) ------------------------------
+
+
+def _service(method, dtype, mif, device, *, streams=8, m=64, n=96, r=8, seed=70, policy_kw=None):
+    from repro_torch.serve import SvdService
+
+    g = np.random.default_rng(seed)
+    svc = SvdService(max_batch=streams, max_in_flight=mif,
+                     policy=api.UpdatePolicy(method=method, **(policy_kw or {})))
+    for i in range(streams):
+        u = np.linalg.qr(g.normal(size=(m, r)))[0]
+        v = np.linalg.qr(g.normal(size=(n, r)))[0]
+        svc.register(f"s{i}", api.SvdState.from_factors(u, np.geomspace(100.0, 1.0, r), v,
+                                                        device=device, dtype=dtype))
+    return svc
+
+
+def _service_traffic(seed=71, rounds=4, streams=8, m=64, n=96):
+    g = np.random.default_rng(seed)
+    return [(f"s{i}", g.normal(size=m), 10.0 * g.normal(size=n) / np.sqrt(m * n))
+            for _ in range(rounds) for i in range(streams)]
+
+
+def _service_states(svc):
+    return {sid: [getattr(svc.state(sid), f) for f in ("u", "s", "v")] for sid in svc._streams}
+
+
+@pytest.mark.parametrize("method", ["fused", "pallas", "direct"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_service_async_equals_sync_bitwise(cuda_device, method, dtype):
+    runs = []
+    for mif in (0, 2):
+        svc = _service(method, dtype, mif, cuda_device)
+        for sid, a, b in _service_traffic():
+            svc.enqueue(sid, a, b)
+        svc.drain()
+        assert svc.in_flight() == 0
+        runs.append(_service_states(svc))
+    for sid in runs[0]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0][sid], runs[1][sid])), sid
+
+
+@pytest.mark.parametrize("method", ["fused", "direct"])
+def test_service_restore_bitwise_after_a_flush(cuda_device, method, tmp_path):
+    """Saved with events pending after a flush, restored on the card: the
+    resumed service gives the same bits as the one that never stopped."""
+    from repro_torch.serve import SvdService
+
+    traffic = _service_traffic(rounds=3)
+    whole = _service(method, torch.float64, 2, cuda_device)
+    part = _service(method, torch.float64, 2, cuda_device)
+    for svc in (whole, part):
+        svc.max_batch = 16                     # no autoflush: a pending FIFO at the save
+        for sid, a, b in traffic[:12]:
+            svc.enqueue(sid, a, b)
+        svc.flush_round()
+        svc.enqueue_op("s1", updates.Sparse(np.array([0, 1, 1], np.int32),
+                                            np.array([2, 3, 5], np.int32),
+                                            np.array([1.0, -2.0, 0.5]), rank=2))
+    assert part.pending() > 0
+    part.save(tmp_path, step=1)
+    _, resumed = SvdService.restore(tmp_path, device=cuda_device)
+    assert resumed.state("s0").u.is_cuda
+    for svc in (whole, resumed):
+        for sid, a, b in traffic[12:]:
+            svc.enqueue(sid, a, b)
+        svc.drain()
+    got, want = _service_states(resumed), _service_states(whole)
+    for sid in want:
+        assert all(torch.equal(x, y) for x, y in zip(got[sid], want[sid])), sid
+
+
+def _syncs(fn):
+    """The places where ``fn`` makes the host wait for the device."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def test_health_probes_add_no_sync_when_not_due(cuda_device):
+    """A fused flush round makes the host wait for nothing; with health
+    probes off (or obs disabled) that stays so, and a due probe is the only
+    wait it adds.  Observability changes neither the bits nor the launches."""
+    from repro_torch import obs
+    from repro_torch.obs import metrics as obs_metrics
+
+    traffic = _service_traffic(rounds=4)
+    prev = obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    try:
+        results = {}
+        for label, pol, on in (("off", None, False), ("every 2, obs off", {"health_every": 2}, False),
+                               ("every 2, obs on", {"health_every": 2}, True)):
+            (obs.enable if on else obs.disable)()
+            svc = _service("fused", torch.float64, 2, cuda_device, policy_kw=pol)
+            for sid, a, b in traffic[:8]:       # warm round: every geometry seen
+                svc.enqueue(sid, a, b)
+            svc.drain()
+            _build.reset_launches()
+            waits = []
+            for rnd in range(1, 4):
+                waits.append(_syncs(lambda r_=rnd: [svc.enqueue(*ev)
+                                                    for ev in traffic[8 * r_:8 * r_ + 8]]))
+            svc.drain()
+            results[label] = (waits, dict(_build.LAUNCHES), _service_states(svc))
+        assert results["off"][0] == [[], [], []], results["off"][0]
+        assert results["every 2, obs off"][0] == [[], [], []], results["every 2, obs off"][0]
+        due = results["every 2, obs on"][0]
+        assert due[0] and not due[1] and due[2], due           # ticks 2 and 4 sample
+        launches = {k: v[1] for k, v in results.items()}
+        assert launches["off"] == launches["every 2, obs off"] == launches["every 2, obs on"]
+        for k in ("every 2, obs off", "every 2, obs on"):
+            for sid, xs in results[k][2].items():
+                assert all(torch.equal(x, y) for x, y in zip(xs, results["off"][2][sid]))
+    finally:
+        obs.disable()
+        obs_metrics.set_registry(prev)
+
+
+def test_warmup_builds_the_route_libraries(cuda_device):
+    from repro_torch.core.engine import default_engine
+
+    eng = default_engine("fused")
+    eng.cache_clear()
+    info = api.warmup(api.UpdatePolicy(method="fused"), m=64, n=96, rank=8, batch=8,
+                      dtype=torch.float32, device=cuda_device)
+    assert tuple(info) == (0, 1, 1)
+    assert "fused_update_f32" in _build._libs
+    out = updates.warmup_sketch(m=64, n=96, k=4, nnz=10, device=cuda_device)
+    assert out[0].is_cuda and "sparse_proj" in _build._libs

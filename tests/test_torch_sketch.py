@@ -117,6 +117,10 @@ def test_sparse_sketch_svd_batched_values_match_reference():
                                                 k=3))
 
 
-def test_warmup_sketch_raises_by_name():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+def test_warmup_sketch_raises_by_name(monkeypatch):
+    # warmup_sketch is ported (test_torch_warmup.py): it runs on the card by
+    # default, and without one it raises by name rather than fall back
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         SK.warmup_sketch(m=4, n=4, k=1)
+    assert SK.warmup_sketch(m=4, n=4, k=1, device="cpu")[1].shape == (1,)

@@ -230,8 +230,13 @@ def test_apply_many_rejects_stacked_states_and_mismatched_lengths():
         api.apply_many([st], [U.Decay(0.5), U.Decay(0.5)])
 
 
-def test_api_exposes_apply_and_unported_warmups_raise():
+def test_api_exposes_apply_and_unported_warmups_raise(monkeypatch):
     assert "apply" in api.__all__ and "apply_many" in api.__all__
     assert set(U.__all__) == set(RU.__all__)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        U.warmup_plan(api.UpdatePolicy(), U.Decay(0.5), m=4, n=6)
+    # warmup_plan is ported (test_torch_warmup.py): on the card by default,
+    # and without one it raises by name rather than fall back
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        U.warmup_plan(api.UpdatePolicy(), U.RankK(np.zeros((4, 1)), np.zeros((6, 1))),
+                      m=4, n=6, rank=2)
+    assert U.warmup_plan(api.UpdatePolicy(), U.Decay(0.5), m=4, n=6, device="cpu") == []

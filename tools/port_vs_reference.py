@@ -3,7 +3,7 @@ against a float64 truth: the numbers behind the f32 and bf16 tolerances of
 ``chip_smoke.py``.
 
     PYTHONPATH=src:tests python tools/port_vs_reference.py [--problems 128] [--seed 0]
-        [--part survey|drives|fmm|all]
+        [--part survey|drives|fmm|merge|all]
 
 ``--part drives`` runs ``chip_smoke.py``'s structured-update drives
 (``drive_inputs``: the same numpy inputs) on the CPU through the port and
@@ -25,6 +25,19 @@ member at a time: each side's distance to the dense truth
 members; the numbers behind chip_smoke's ``FMM_TRUTH_LIMIT``), port
 against reference and FMM against ``direct`` (the scale-free measures), and
 the members whose FMM plan overflowed (the port's record).
+
+``--part merge`` runs ``chip_smoke.py``'s (s3) merge at a smaller height:
+64 row shards of m64 n4096 r32 of a matrix of rank 32, of two kinds:
+``rotated`` ((s3)'s: each shard a common orthonormal V0 turned by its own
+rotation, singular values 100 .. 1, so that the stacked singular values
+cluster) and ``row blocks`` (the row blocks of one matrix with singular
+values 100 .. 1, well separated, each shard its block's SVD).  It merges
+them with ``merge_tree`` through the port and through the reference, on the
+``direct`` and ``fused`` routes, in float64 and float32.  For each it prints
+the distance to the stacked matrix's top-32 SVD: ``sigma`` max_i |s_i -
+s_M_i| / s_M_i, ``span_u`` and ``span_v`` the RMS sine of the angles to the
+top-32 left and right subspaces, ``recon`` ||U S V^T - M||_F / ||M||_F, and
+``ortho_u`` max |U^T U - I|.
 
 The survey's two cases, printed as one JSON object:
 
@@ -469,11 +482,66 @@ def fmm() -> dict:
     return res
 
 
+def merge(shards: int = 64, m: int = 64, n: int = 4096, r: int = 32, seed: int = 0) -> dict:
+    """(s3)'s merge at height ``m``: port and reference ``merge_tree`` against
+    the stacked matrix's top-32 SVD, by route and dtype."""
+    from repro_torch import api
+    from repro_torch.core.svd_update import TruncatedSvd
+    from repro_torch.dist import merge_tree
+
+    rapi, rmerge = ref("api"), ref("dist.merge")
+    rtsvd = ref("core.svd_update").TruncatedSvd
+    rng = np.random.default_rng(seed)
+
+    def orth(*shape):
+        return np.linalg.qr(rng.normal(size=shape))[0]
+
+    s = np.geomspace(100.0, 1.0, r)
+    v0 = orth(n, r)
+    rotated = [(orth(m, r), s, v0 @ orth(r, r)) for _ in range(shards)]
+    blocks = np.split((orth(shards * m, r) * s) @ orth(n, r).T, shards)
+    row_blocks = []
+    for blk in blocks:
+        u, sv, vt = np.linalg.svd(blk, full_matrices=False)
+        row_blocks.append((u[:, :r], sv[:r], vt[:r].T))
+
+    def span(truth, got):
+        q = np.linalg.qr(got)[0]
+        return float(np.linalg.norm(q - truth @ (truth.T @ q)) / r ** 0.5)
+
+    res = {}
+    for kind, factors in (("rotated", rotated), ("row blocks", row_blocks)):
+        stacked = np.concatenate([(u * sv) @ v.T for u, sv, v in factors])
+        uu, ss, vvt = np.linalg.svd(stacked, full_matrices=False)
+        u_t, sig, v_t = uu[:, :r], ss[:r], vvt[:r].T
+
+        def measures(out):
+            u, sv, v = (np.asarray(x, dtype=np.float64) for x in (out.u, out.s, out.v))
+            rec = np.linalg.norm((u * sv) @ v.T - stacked) / np.linalg.norm(stacked)  # noqa: B023
+            return {"sigma": float(np.max(np.abs(sv - sig) / sig)),  # noqa: B023
+                    "span_u": span(u_t, u), "span_v": span(v_t, v),  # noqa: B023
+                    "recon": float(rec), "ortho_u": float(np.max(np.abs(u.T @ u - np.eye(r))))}
+
+        out = {"gaps_min_rel": float(np.min((sig[:-1] - sig[1:]) / sig[:-1])),
+               "sigma_33_over_sigma_1": float(ss[r] / ss[0])}
+        for method in ("direct", "fused"):
+            for tdt, jdt in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
+                got = merge_tree([TruncatedSvd(*(torch.as_tensor(x, dtype=tdt) for x in f))
+                                  for f in factors], policy=api.UpdatePolicy(method=method))
+                want = rmerge.merge_tree([rtsvd(*(jnp.asarray(x, dtype=jdt) for x in f))
+                                          for f in factors],
+                                         policy=rapi.UpdatePolicy(method=method))
+                out[f"{method} {str(tdt)[6:]}"] = {"port": measures(got),
+                                                    "reference": measures(want)}
+        res[kind] = out
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--problems", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--part", choices=("survey", "drives", "fmm", "all"), default="all")
+    ap.add_argument("--part", choices=("survey", "drives", "fmm", "merge", "all"), default="all")
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(4)
@@ -485,6 +553,8 @@ def main() -> None:
         out["drives"] = drives()
     if args.part in ("fmm", "all"):
         out["fmm"] = fmm()
+    if args.part in ("merge", "all"):
+        out["merge"] = merge()
     print(json.dumps(out, indent=1))
 
 
