@@ -44,6 +44,24 @@ result) when it fails:
    B64, then ``merge_streams`` over all of them (6 levels), held to the
    stacked matrix's top-32 SVD (the same deployment in f64 at the
    reference's merge tolerance);
+3e. the fleet tier, the batch mesh and the collectives (``fleet_inputs``):
+   (f1) ``fleet.SvdFleet`` with 64 streams at m512 n768 r16 on 4 shards of the
+   card (``devices="auto"``), continuous batching at ``max_depth`` 8, 32
+   pairs and one Sparse (F) a stream under ``method="fused"`` (B), f64 and
+   f32: every token visible after ``drain``, settle on 1 and on 4 shards equal
+   to the bit, ``query`` over 8 streams equal to a single service's settle to
+   the bit, f64 held to the route on the CPU, drain on 1 vs 4 shards reported;
+   events/s, ms a round, the device share, host waits a round and B's and
+   F's launches; a ``direct`` row at 16 streams; (f2) ``api.update_many`` at
+   B = 13 on full f64 (32, 48) states (A) and m512 n768 r16 states (B), and
+   the service, under a mesh of one and of four entries of the card: equal
+   to the local call to the bit; (f3) ``dist.distributed_merge`` of four
+   rank-32 shards at m1024 n4096 f64, one process a rank on the card: NCCL at
+   world 1, gloo (CUDA tensors) at 2 and 4, every rank equal to the port's
+   ``merge_tree`` to the bit, ``psum_factor`` / ``pmean_factor`` against the
+   sums, ms of the merge and of the factor all-gather; (f4) the fleet saved
+   with 8 pairs a stream pending and restored onto 2 shards: equal to the
+   uninterrupted fleet to the bit, its first flush missing no cache;
 4. times: median of CUDA-event timings after warm-up, for each kernel, its
    plain version and a PyTorch call that computes the same function (one
    batched ``torch.linalg.svd`` of the updated matrices for A and B,
@@ -296,6 +314,23 @@ SERVE_MERGE_LIMIT = 10 * 2.0 ** -11.5
 SERVE_MERGE_F64_LIMIT = 1e-6
 FMM_TRUTH = {"i": (3.33e-7, 5e-7), "ii": (2.16e-7, 3e-7), "iii": (4.59e-14, 1e-13),
              "v": (5.38e-9, 1e-8)}
+# the fleet and mesh phase: (f1) 64 streams at the reference's serving shape
+# (bench_serve.py:56-58, m512 n768 r16) across 4 shards of the one card,
+# continuous batching at max_depth 8, 32 pairs a stream and one Sparse (256
+# entries in 8 rows, rank 8: the sketch's exact regime) after the 16th, a pump
+# every 64 admissions; a direct row at 16 streams, 8 pairs each (a direct
+# round costs ~120 ms, PERF.md); (f2) the mesh rows at B = 13 (padding on a
+# four-entry axis); (f3) distributed_merge of four rank-32 shards at m1024
+# n4096, f64, row blocks of one rank-32 matrix; (f4) the fleet saved with 8
+# pairs a stream pending, restored onto 2 shards
+FLEET = {"streams": 64, "m": 512, "n": 768, "r": 16, "pairs": 32, "sparse_after": 16,
+         "sparse_nnz": 256, "shards": 4, "max_depth": 8, "pump_every": 64,
+         "direct_streams": 16, "direct_pairs": 8, "pending_from": 16, "pending_to": 24}
+MESH_B = 13
+MERGE_F3 = {"shards": 4, "m": 1024, "n": 4096, "r": 32}
+# one world at a time, in this order: NCCL can take one rank a card, gloo
+# stages CUDA tensors through the host
+MERGE_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
 
 
 def log(*args):
@@ -456,10 +491,120 @@ def service_inputs(seed: int = 5) -> dict:
     return {"s1": s1, "s2": s2, "s3": s3}
 
 
-def serve_streams(api, serve, d, *, method, dtype, mif, device, max_batch=None):
+def fleet_inputs(seed: int = 6) -> dict:
+    """The numpy inputs of the fleet and mesh phase, from one seed.
+
+    f1. ``FLEET["streams"]`` rank-16 streams at m512 n768: QR-made orthonormal
+        factors, singular values 100 .. 1 geometric; ``FLEET["pairs"]`` rounds
+        of one pair a stream (|a| |b| the median singular value); a Sparse a
+        stream of 256 N(0, 1) entries in 8 of its rows.
+    f2. 13 full (32, 48) states and 13 rank-16 states at m512 n768, of the
+        same kind, and a pair each.
+    f3. four rank-32 shards at m1024 n4096: row blocks of one matrix of rank
+        32 (a common right factor turned by each shard's own rotation), so
+        their merge is exact up to rounding.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def orth(*shape):
+        return np.linalg.qr(rng.normal(size=shape))[0]
+
+    def pair(m, n, scale):
+        a, b = rng.normal(size=m), rng.normal(size=n)
+        return a, b * scale / (np.linalg.norm(a) * np.linalg.norm(b))
+
+    m, n, r, k = FLEET["m"], FLEET["n"], FLEET["r"], FLEET["streams"]
+    s = np.geomspace(100.0, 1.0, r)
+    scale = float(np.median(s))
+    f1 = {"factors": [(orth(m, r), s, orth(n, r)) for _ in range(k)],
+          "rounds": [[pair(m, n, scale) for _ in range(k)] for _ in range(FLEET["pairs"])],
+          "sparse": [(rng.choice(m, 8, replace=False)[rng.integers(0, 8, FLEET["sparse_nnz"])]
+                      .astype(np.int32), rng.integers(0, n, FLEET["sparse_nnz"]).astype(np.int32),
+                      rng.normal(size=FLEET["sparse_nnz"])) for _ in range(k)]}
+    full = [(orth(32, 32), np.geomspace(100.0, 1.0, 32), orth(48, 48)) for _ in range(MESH_B)]
+    trunc = [(orth(m, r), s, orth(n, r)) for _ in range(MESH_B)]
+    f2 = {"full": full, "full_pairs": [pair(32, 48, 10.0) for _ in range(MESH_B)],
+          "trunc": trunc, "trunc_pairs": [pair(m, n, scale) for _ in range(MESH_B)]}
+    m3, n3, r3 = MERGE_F3["m"], MERGE_F3["n"], MERGE_F3["r"]
+    v0 = orth(n3, r3)
+    f3 = [(orth(m3, r3), np.geomspace(100.0, 1.0, r3), v0 @ orth(r3, r3))
+          for _ in range(MERGE_F3["shards"])]
+    return {"f1": f1, "f2": f2, "f3": f3}
+
+
+def merge_worker(rank: int, world: int, backend: str, init: str, paths: dict) -> None:
+    """One rank of a (f3) world, in its own process on card 0: warm
+    ``distributed_merge`` once, wait for the previous world to finish, time
+    one merge and one ``all_gather_tsvd`` (on CUDA tensors: gloo stages them
+    through the host), run ``psum_factor`` and ``pmean_factor`` against their
+    sums, and write the results to ``paths["out"] % rank``.  gloo may refuse
+    an op on CUDA tensors: the refusal is recorded, not raised (NCCL's is
+    raised)."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch import api
+    from repro_torch.core.svd_update import TruncatedSvd
+    from repro_torch.dist import all_gather_tsvd, distributed_merge, pmean_factor, psum_factor
+    from repro_torch.kernels import _build
+
+    torch.cuda.set_device(0)
+    tdist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    try:
+        group = tdist.group.WORLD
+        with np.load(paths["shards"]) as z:
+            shards = [tuple(torch.as_tensor(z[f"{f}{i}"], device="cuda") for f in "usv")
+                      for i in range(world)]
+        local = TruncatedSvd(*shards[rank])
+        pol = api.UpdatePolicy(method="fused")
+        distributed_merge(local, group, policy=pol)
+        torch.cuda.synchronize()
+        if rank == 0 and paths["prev"]:
+            while not os.path.exists(paths["prev"]):
+                time.sleep(0.05)
+        tdist.barrier()
+        _build.reset_launches()
+        t = time.perf_counter()
+        merged = distributed_merge(local, group, policy=pol)
+        torch.cuda.synchronize()
+        merge_ms = (time.perf_counter() - t) * 1e3
+        launches = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        all_gather_tsvd(local, group)
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t) * 1e3
+        ops = {}
+        want = {"psum": sum(sh[0] for sh in shards)}
+        want["pmean"] = want["psum"] / world
+        for name, fn in (("psum", psum_factor), ("pmean", pmean_factor)):
+            try:
+                got = fn(local.u, group)
+            except RuntimeError as e:
+                if backend != "gloo":
+                    raise
+                ops[name] = f"refused by gloo on CUDA tensors: {str(e).splitlines()[0][:160]}"
+                continue
+            ops[name] = float((got - want[name]).abs().max() / want[name].abs().max())
+        tdist.barrier()
+        if rank == 0:
+            Path(paths["done"]).touch()
+        np.savez(paths["out"] % rank, u=merged.u.cpu().numpy(), s=merged.s.cpu().numpy(),
+                 v=merged.v.cpu().numpy(), merge_ms=merge_ms, gather_ms=gather_ms,
+                 launches=json.dumps(launches), ops=json.dumps(ops))
+    finally:
+        tdist.destroy_process_group()
+
+
+def serve_streams(api, serve, d, *, method, dtype, mif, device, max_batch=None, mesh=None):
     """A service with the streams of ``d`` registered (not yet fed)."""
     svc = serve.SvdService(max_batch=max_batch or len(d["factors"]), max_in_flight=mif,
-                           policy=api.UpdatePolicy(method=method))
+                           policy=api.UpdatePolicy(method=method, mesh=mesh))
     for i, f in enumerate(d["factors"]):
         svc.register(f"s{i}", api.SvdState.from_factors(*f, device=device, dtype=dtype))
     return svc
@@ -679,13 +824,14 @@ def main() -> int:
 
     def time_ms(fn, budget_ms=1500.0):
         # one untimed call warms up and sizes the count: at least 3 timed calls
-        # where a call takes under half a second, 2 for the second-long routes
+        # where a call takes under half a second; the second-long routes and
+        # drives get one (they had two until the fleet phase needed the time)
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         once = (time.perf_counter() - t) * 1e3
-        reps = int(min(30, max(3 if once < 500 else 2, budget_ms / max(once, 1e-3))))
+        reps = int(min(30, max(3 if once < 500 else 1, budget_ms / max(once, 1e-3))))
         times = []
         for _ in range(reps):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -1686,6 +1832,361 @@ def main() -> int:
     # -- phase 3d: the streaming service --------------------------------------------
     service_ctx = service_phase()
 
+    # -- phase 3e: the fleet tier, the batch mesh and the collectives ----------------
+    def launches_of(name, fn):
+        """Run ``fn`` with the counters zeroed before it and read after it
+        (kept in ``drive_launches`` for the kernels line); the counts of the
+        fleet's rounds depend on when the card finishes a round, so they are
+        reported, not held to a number."""
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        drive_launches[name] = dict(_build.LAUNCHES)
+        log(f"  {name}: launches {drive_launches[name]}")
+        return out
+
+    def fleet_phase(ctx):
+        """(f1)-(f4); returns the phase's timing rows."""
+        import multiprocessing as mp_
+        import shutil
+        import tempfile
+
+        from repro_torch import dist as D
+        from repro_torch import fleet as FL
+        from repro_torch import serve
+        from repro_torch.core import engine as ENG
+        from repro_torch.core.svd_update import TruncatedSvd
+        from repro_torch.dist import merge_tree
+
+        log("the fleet tier, the batch mesh and the collectives:")
+        t_phase = time.perf_counter()
+        inp = fleet_inputs()
+        d1 = inp["f1"]
+        ids = [f"f{i}" for i in range(FLEET["streams"])]
+        rows = []
+
+        def fleet(n_shards, method, dtype, device, streams=FLEET["streams"], continuous=True):
+            """A fleet with the first ``streams`` streams registered; its
+            shards on the card (``devices="auto"``) or the CPU.  The fixed
+            mode never autoflushes: it is the settle path."""
+            on_card = torch.device(device).type == "cuda"
+            fl = FL.SvdFleet(n_shards, policy=api.UpdatePolicy(method=method),
+                             max_batch=64 if continuous else 1 << 30, continuous=continuous,
+                             max_depth=FLEET["max_depth"],
+                             devices="auto" if on_card else [torch.device("cpu")])
+            for sid, f in zip(ids[:streams], d1["factors"]):
+                fl.register(sid, api.SvdState.from_factors(*f, device=device, dtype=dtype))
+            return fl
+
+        def feed(fl, first=0, last=FLEET["pairs"], streams=FLEET["streams"], pump=True,
+                 sparse=True):
+            """Rounds ``first`` .. ``last`` - 1 of one pair a stream, each
+            stream's Sparse after round ``sparse_after`` - 1, a pump every
+            ``pump_every`` admissions; returns the tokens."""
+            toks, n = [], 0
+            for e in range(first, last):
+                for i in range(streams):
+                    toks.append(fl.enqueue(ids[i], *d1["rounds"][e][i]))
+                    if sparse and e == FLEET["sparse_after"] - 1:
+                        toks.append(fl.enqueue_op(ids[i], updates.Sparse(*d1["sparse"][i],
+                                                                         rank=8)))
+                    n += 1
+                    if pump and n % FLEET["pump_every"] == 0:
+                        fl.pump()
+            return toks
+
+        def states(fl, sids):
+            return [torch.stack([getattr(fl.state(x), f) for x in sids]).cpu()
+                    for f in ("u", "s", "v")]
+
+        # (f1) the fleet at the serving shape, per dtype
+        n_events = FLEET["streams"] * (FLEET["pairs"] + 1)
+        for dt in (torch.float64, torch.float32):
+            dn = name_of(dt)
+            label = (f"(f1) fused {dn} {FLEET['streams']} streams m{FLEET['m']} n{FLEET['n']} "
+                     f"r{FLEET['r']} on {FLEET['shards']} shards")
+            fl4 = fleet(FLEET["shards"], "fused", dt, dev)
+
+            def run_timed(fl_=fl4):
+                t = time.perf_counter()
+                toks = feed(fl_)
+                fl_.drain()
+                torch.cuda.synchronize()
+                return toks, time.perf_counter() - t
+
+            toks, wall = launches_of(f"f1 fused {dn}", run_timed)
+            seen = set(fl4.poll())
+            require(seen == set(toks) and fl4.pending() == 0,
+                    f"{label}: {len(set(toks) - seen)} tokens not visible after drain")
+            st = fl4.stats()
+            got = states(fl4, ids)
+            require(all(bool(torch.isfinite(x).all()) for x in got), f"{label}: non-finite")
+            lc = drive_launches[f"f1 fused {dn}"]
+            require(lc["fused_update_truncated"] > 0, f"{label}: kernel B never launched")
+            require(lc["sparse_project"] == 2 * FLEET["streams"],
+                    f"{label}: kernel F launched {lc['sparse_project']} times, expected "
+                    f"{2 * FLEET['streams']}")
+            # the device's busy time and the host's waits, on two more runs
+            flp = fleet(FLEET["shards"], "fused", dt, dev)
+            busy_ms, busy_split = device_ms(lambda f_=flp: (feed(f_), f_.drain()), n=1, warm=False)
+            source = "CUDA events" if EVENTS_KEY in busy_split else "profiler"
+            fls = fleet(FLEET["shards"], "fused", dt, dev)
+            syncs, where = count_syncs(lambda f_=fls: (feed(f_), f_.drain()))
+            rounds = st.flushes
+            row = {"drive": "f1", "route": "fused", "dtype": dn, "streams": FLEET["streams"],
+                   "shards": FLEET["shards"], "events": n_events, "wall_ms": wall * 1e3,
+                   "events_per_s": n_events / wall, "rounds": rounds,
+                   "ms_per_round": wall * 1e3 / rounds, "scan_rounds": st.scan_rounds,
+                   "device_busy_ms": busy_ms, "device_share": busy_ms / (wall * 1e3),
+                   "device_source": source, "host_waits": syncs,
+                   "host_waits_per_round": syncs / max(fls.stats().flushes, 1),
+                   "sync_sites": where, "launches_B": lc["fused_update_truncated"],
+                   "launches_F": lc["sparse_project"]}
+            rows.append(row)
+            log(f"  {label}: {n_events} events in {wall * 1e3:.1f} ms: {row['events_per_s']:.0f} "
+                f"events/s, {rounds} rounds ({st.scan_rounds} deep), {row['ms_per_round']:.3f} ms "
+                f"a round, device busy {busy_ms:.1f} ms ({100 * row['device_share']:.1f} %, "
+                f"{source}), {syncs} host waits ({row['host_waits_per_round']:.2f} a round) "
+                f"{where or ''}, B {lc['fused_update_truncated']} launches, F {lc['sparse_project']}")
+            # drain across 1 and 4 shards (reported: the reference promises ulps)
+            fl1 = fleet(1, "fused", dt, dev)
+            feed(fl1)
+            fl1.drain()
+            same = all(torch.equal(x, y) for x, y in zip(states(fl1, ids), got))
+            row["drain_1_vs_4_bitwise"] = same
+            log(f"  {label}: drain on 1 shard vs 4: {'equal to the bit' if same else 'NOT equal'}")
+            # settle across 1 and 4 shards, and query over 8 streams against a
+            # single service's settle, to the bit
+            g4 = fleet(FLEET["shards"], "fused", dt, dev, continuous=False)
+            g1 = fleet(1, "fused", dt, dev, continuous=False)
+            for g in (g4, g1):
+                feed(g, pump=False)
+            require_bitwise(f"{label}: settle on 1 shard vs 4", [torch.stack(x) for x in zip(
+                *[(st_.u, st_.s, st_.v) for st_ in g4.settle(ids)])], [torch.stack(x) for x in zip(
+                    *[(st_.u, st_.s, st_.v) for st_ in g1.settle(ids)])])
+            single = serve.SvdService(max_batch=1 << 30, policy=api.UpdatePolicy(method="fused"))
+            for sid, f in zip(ids[:8], d1["factors"]):
+                single.register(sid, api.SvdState.from_factors(*f, device=dev, dtype=dt))
+            for e in range(FLEET["pairs"]):
+                for i in range(8):
+                    single.enqueue(ids[i], *d1["rounds"][e][i])
+                    if e == FLEET["sparse_after"] - 1:
+                        single.enqueue_op(ids[i], updates.Sparse(*d1["sparse"][i], rank=8))
+            q, want_q = g4.query(ids[:8]), single.merge_streams(ids[:8])
+            require_bitwise(f"{label}: query over 8 streams vs a single service's settle",
+                            [q.u, q.s, q.v], [want_q.u, want_q.s, want_q.v])
+            if dt == torch.float64:
+                cpu_fl = fleet(1, "fused", dt, "cpu")
+                feed(cpu_fl)
+                cpu_fl.drain()
+                check(f"{label}: card (4 shards) vs the route on the CPU (1 shard), over "
+                      f"sigma_max", over_sigma_max(got, states(cpu_fl, ids)), SERVE_F64_LIMIT)
+                del cpu_fl
+            del fl4, flp, fls, fl1, g4, g1, single
+
+        # (f1) one direct row: the phase chain's rounds
+        fld = fleet(FLEET["shards"], "direct", torch.float64, dev, streams=FLEET["direct_streams"])
+
+        def run_direct(fl_=fld):
+            t = time.perf_counter()
+            feed(fl_, last=FLEET["direct_pairs"], streams=FLEET["direct_streams"], sparse=False)
+            fl_.drain()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        wall = launches_of("f1 direct float64", run_direct)
+        n_dir = FLEET["direct_streams"] * FLEET["direct_pairs"]
+        st = fld.stats()
+        require(all(bool(torch.isfinite(x).all())
+                    for x in states(fld, ids[:FLEET["direct_streams"]])), "(f1) direct: non-finite")
+        rows.append({"drive": "f1", "route": "direct", "dtype": "float64",
+                     "streams": FLEET["direct_streams"], "shards": FLEET["shards"],
+                     "events": n_dir, "wall_ms": wall * 1e3, "events_per_s": n_dir / wall,
+                     "rounds": st.flushes, "ms_per_round": wall * 1e3 / st.flushes})
+        log(f"  (f1) direct float64 {FLEET['direct_streams']} streams on {FLEET['shards']} shards: "
+            f"{n_dir} events in {wall * 1e3:.0f} ms: {n_dir / wall:.0f} events/s, {st.flushes} "
+            f"rounds, {wall * 1e3 / st.flushes:.1f} ms a round")
+        del fld
+
+        # (f2) the mesh rows on the one card: a one-entry and a four-entry mesh
+        d2 = inp["f2"]
+        meshes = {"1 entry": D.make_host_mesh(1), "4 entries": D.make_host_mesh(4)}
+
+        def run_mesh():
+            out = {}
+            for kind, key in (("full", "full_pairs"), ("trunc", "trunc_pairs")):
+                sts = [api.SvdState.from_factors(*f, device=dev) for f in d2[kind]]
+                A, Bv = [p[0] for p in d2[key]], [p[1] for p in d2[key]]
+                pol = api.UpdatePolicy(method="fused")
+                out[(kind, None)] = api.update_many(sts, A, Bv, pol)
+                for mname, mesh in meshes.items():
+                    out[(kind, mname)] = api.update_many(sts, A, Bv, pol.replace(mesh=mesh))
+            return out
+
+        outs = launches_of("f2 mesh", run_mesh)
+        for kind, what in (("full", f"full f64 (32, 48) B{MESH_B}, kernel A"),
+                           ("trunc", f"truncated f64 m{FLEET['m']} n{FLEET['n']} r{FLEET['r']} "
+                                     f"B{MESH_B}, kernel B")):
+            want = [torch.stack([getattr(o, f) for o in outs[(kind, None)]]) for f in "usv"]
+            for mname in meshes:
+                require_bitwise(f"(f2) api.update_many {what}, mesh of {mname} vs local",
+                                [torch.stack([getattr(o, f) for o in outs[(kind, mname)]])
+                                 for f in "usv"], want)
+        require(drive_launches["f2 mesh"]["fused_update"] > 0
+                and drive_launches["f2 mesh"]["fused_update_truncated"] > 0,
+                "(f2) the mesh rows never launched kernel A or B")
+        d_s1 = ctx["inputs"]["s1"]
+        sids = [f"s{i}" for i in range(SERVE_S1["streams"])]
+
+        def run_service_mesh():
+            out = {}
+            for mname, mesh in (("none", None), *meshes.items()):
+                svc = serve_streams(api, serve, d_s1, method="fused", dtype=torch.float64, mif=2,
+                                    device=dev, mesh=mesh)
+                serve_rounds(svc, d_s1["rounds"][:3])
+                svc.drain()
+                out[mname] = stream_stack(svc, sids)
+            return out
+
+        svc_outs = launches_of("f2 service mesh", run_service_mesh)
+        for mname in meshes:
+            require_bitwise(f"(f2) service fused f64 16 streams m512 n768 r16, 3 rounds, mesh of "
+                            f"{mname} vs none", svc_outs[mname], svc_outs["none"])
+
+        # (f3) distributed_merge across processes on the one card
+        d3 = inp["f3"]
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_f3_", dir=ROOT / "build"))
+        np.savez(work / "shards.npz", **{f"{f}{i}": x for i, sh in enumerate(d3)
+                                          for f, x in zip("usv", sh)})
+        mp_ctx = torch.multiprocessing.get_context("spawn")
+        worlds = []
+        prev = None
+        for backend, world in MERGE_WORLDS:
+            paths = {"shards": str(work / "shards.npz"), "prev": prev,
+                     "done": str(work / f"done_{backend}{world}"),
+                     "out": str(work / f"{backend}{world}_rank%d.npz")}
+            init = f"file://{work / f'store_{backend}{world}'}"
+            procs = [mp_ctx.Process(target=merge_worker, args=(r, world, backend, init, paths))
+                     for r in range(world)]
+            worlds.append((backend, world, paths, procs))
+            prev = paths["done"]
+        t_f3 = time.perf_counter()
+        for *_, procs in worlds:
+            for p in procs:
+                p.start()
+        try:
+            for backend, world, _, procs in worlds:
+                for p in procs:
+                    p.join(timeout=600)
+                alive = [p for p in procs if p.is_alive()]
+                require(not alive, f"(f3) {backend} world {world}: {len(alive)} ranks still "
+                        f"running after 600 s")
+                require(all(p.exitcode == 0 for p in procs),
+                        f"(f3) {backend} world {world}: exit codes {[p.exitcode for p in procs]}")
+        finally:
+            for *_, procs in worlds:
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join(timeout=30)
+        log(f"  (f3) {len(worlds)} worlds ({sum(w for _, w, _, _ in worlds)} processes) in "
+            f"{time.perf_counter() - t_f3:.1f} s")
+        shards_dev = [TruncatedSvd(*(torch.as_tensor(x, device=dev) for x in sh)) for sh in d3]
+        pol = api.UpdatePolicy(method="fused")
+        f3_launches = dict(_NONE)
+        for backend, world, paths, _ in worlds:
+            want = launches_of(f"f3 merge_tree of {world}",
+                               lambda w_=world: merge_tree(shards_dev[:w_], policy=pol))
+            want = [x.cpu() for x in (want.u, want.s, want.v)]
+            res = []
+            for r in range(world):
+                with np.load(paths["out"] % r) as z:
+                    res.append({k: z[k] for k in z.files})
+            label = (f"(f3) distributed_merge, {backend} world {world}: {world} rank-"
+                     f"{MERGE_F3['r']} shards m{MERGE_F3['m']} n{MERGE_F3['n']} f64 on CUDA tensors")
+            for r, x in enumerate(res):
+                require_bitwise(f"{label}: rank {r} vs the port's merge_tree",
+                                [torch.as_tensor(x[f]) for f in "usv"], want)
+                for k_, v_ in json.loads(str(x["launches"])).items():
+                    f3_launches[k_] += v_
+            ops = [json.loads(str(x["ops"])) for x in res]
+            for name in ("psum", "pmean"):
+                vals = [o[name] for o in ops]
+                if any(isinstance(v, str) for v in vals):
+                    log(f"  {label}: {name}_factor {vals[0]}")
+                    require(backend == "gloo", f"{label}: {name} refused under {backend}")
+                else:
+                    check(f"{label}: {name}_factor vs the sum of the shards' u, relative",
+                          max(vals), 1e-14)
+            merge_ms = [float(x["merge_ms"]) for x in res]
+            gather_ms = [float(x["gather_ms"]) for x in res]
+            rows.append({"drive": "f3", "backend": backend, "world": world,
+                         "merge_ms": max(merge_ms), "gather_ms": max(gather_ms), "ops": ops[0]})
+            log(f"  {label}: merge {max(merge_ms):.2f} ms (slowest rank), of which the factor "
+                f"all-gather alone {max(gather_ms):.2f} ms"
+                + (" (gloo: CUDA tensors staged through the host)" if backend == "gloo" else ""))
+        drive_launches["f3 distributed_merge, every rank"] = f3_launches
+        log(f"  f3 distributed_merge, every rank: launches {f3_launches}")
+        log("  (f3) NCCL across several cards is not run: this machine has one card, and NCCL "
+            "takes one rank a card")
+        shutil.rmtree(work, ignore_errors=True)
+
+        # (f4) a fleet snapshot: saved with 8 pairs a stream pending, restored
+        # onto 2 shards, against the fleet that was not interrupted
+        ckpt_dir = ROOT / "build" / "chip_smoke_fleet_ckpt"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        f4 = {}
+
+        def run_f4():
+            whole, part = (fleet(FLEET["shards"], "fused", torch.float64, dev) for _ in range(2))
+            for fl_ in (whole, part):
+                feed(fl_, last=FLEET["pending_from"])     # the Sparse events included
+                fl_.drain()
+                feed(fl_, first=FLEET["pending_from"], last=FLEET["pending_to"], pump=False)
+            f4["pending"] = part.pending()
+            part.save(ckpt_dir, step=1)
+            for eng in ENG._default_engines.values():
+                eng.cache_clear()
+            t = time.perf_counter()
+            _, resumed = FL.SvdFleet.restore(ckpt_dir, num_shards=2, devices="auto", device=dev)
+            torch.cuda.synchronize()
+            f4["restore_s"] = time.perf_counter() - t
+            f4["misses"] = sum(e.cache_info().misses for e in ENG._default_engines.values())
+            builds = []
+            real_build = _build.build_all
+            _build.build_all = lambda: builds.append(1) or real_build()
+            try:
+                f4["first_events"] = resumed.pump()      # the first flush after the restore
+                torch.cuda.synchronize()
+            finally:
+                _build.build_all = real_build
+            f4["first_misses"] = sum(e.cache_info().misses
+                                     for e in ENG._default_engines.values()) - f4["misses"]
+            f4["first_builds"] = len(builds)
+            for fl_ in (whole, resumed):
+                feed(fl_, first=FLEET["pending_to"])
+                fl_.drain()
+            return whole, resumed
+
+        whole, resumed = launches_of("f4 fleet snapshot", run_f4)
+        label4 = (f"(f4) fused float64 {FLEET['streams']} streams on {FLEET['shards']} shards, saved "
+                  f"with {f4['pending']} events pending, restored onto {resumed.num_shards}")
+        require(f4["pending"] > 0 and resumed.num_shards == 2, f"{label4}: nothing pending")
+        log(f"  {label4}: restore (load, regroup, warm) {f4['restore_s']:.3f} s; the first flush "
+            f"({f4['first_events']} events): {f4['first_misses']} engine-cache misses, "
+            f"{f4['first_builds']} library builds")
+        require(f4["first_events"] > 0 and f4["first_misses"] == 0 and f4["first_builds"] == 0,
+                f"{label4}: the first flush after the restore missed the warmed caches")
+        require_bitwise(f"{label4}: resumed vs uninterrupted, every stream", states(resumed, ids),
+                        states(whole, ids))
+        rows.append({"drive": "f4", "restore_s": f4["restore_s"], "pending": f4["pending"],
+                     "first_flush_misses": f4["first_misses"]})
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        log(f"  fleet phase: {time.perf_counter() - t_phase:.1f} s")
+        return rows
+
+    fleet_rows = fleet_phase(service_ctx)
+
     # -- phase 4: times -------------------------------------------------------------
     log(f"times (median of CUDA events after warm-up), from {time.perf_counter() - t_run:.0f} s "
         f"into the run:")
@@ -1924,7 +2425,7 @@ def main() -> int:
         log(f"  drive {label}: {drive_rows[-1]['ms']:.3f} ms end to end")
     service_rows = service_times(service_ctx)
     log("timings " + json.dumps({"timings": rows + f_rows + d_rows + e_rows, "drives": drive_rows,
-                                 "service": service_rows,
+                                 "service": service_rows, "fleet": fleet_rows,
                                  "routes": route_rows, "drive_launches": drive_launches,
                                  "fmm_overflowed": fmm_overflows, "card": card}))
 

@@ -51,9 +51,9 @@ class UpdatePolicy:
     storage_dtype  keep factors in this dtype; 16-bit storage computes in f32
     sketch_oversample   extra range-finder samples beyond a sketch's rank
     sketch_power_iters  power iterations of the dense range-finder
-    mesh           not ported (ROADMAP A7); must be None
-    batch_axis     the mesh axis a batch would be spread over (recorded, as
-                   in the reference; no mesh placement yet, ROADMAP A7)
+    mesh           a ``dist.mesh.Mesh`` to spread a batched update over
+                   (None = local)
+    batch_axis     the mesh axis carrying the batch
     truncate_to    keep only the top-r triplets of every result
     health_every   sample the numerical-health probes (``repro_torch.obs``)
                    every N flush rounds of the service (None = never)
@@ -96,6 +96,10 @@ class UpdatePolicy:
             raise ValueError(f"health_every must be >= 1 or None; got {self.health_every}")
         if self.storage_dtype is not None:
             object.__setattr__(self, "storage_dtype", as_torch_dtype(self.storage_dtype))
+        if self.mesh is not None:
+            from repro_torch.dist.mesh import check_mesh
+
+            check_mesh(self.mesh)
 
     def replace(self, **kw) -> "UpdatePolicy":
         return dataclasses.replace(self, **kw)

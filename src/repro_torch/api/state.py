@@ -4,7 +4,9 @@ Counterpart of ``repro.api.state``.  ``u: (..., m, k)``, ``s: (..., k)``,
 ``v: (..., n, k)``; ``k == m`` with square ``v`` is the full paper state,
 ``k < min(m, n)`` the truncated streaming state, and a leading batch axis
 (``u.dim() == 3``) marks B stacked problems.  ``d_left``/``d_right`` are the
-optional eigen diagnostics of a full update.
+optional eigen diagnostics of a full update.  ``mesh`` is placement
+metadata, not data: the ``dist.mesh.Mesh`` a batched update of this state
+spreads its batch over when the policy names none.
 
 The constructors take ``device=``, defaulting to ``"cuda"``: without a card
 they raise unless ``device="cpu"`` is given, so nothing runs on the CPU by
@@ -14,6 +16,7 @@ accident.  Updates run where the state lives.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -37,20 +40,29 @@ def _tensor(x, device, dtype=None):
     return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh placement is not ported yet (ROADMAP A7)")
+def _check_mesh(mesh):
+    from repro_torch.dist.mesh import check_mesh
+
+    return check_mesh(mesh)
 
 
 @dataclasses.dataclass(frozen=True)
 class SvdState:
     """Immutable SVD state: ``A ≈ u @ diag(s) @ v[..., :k].T``."""
 
+    # the data fields (checkpoints, stacking); ``mesh`` is metadata
+    tree_fields = ("u", "s", "v", "d_left", "d_right")
+
     u: torch.Tensor
     s: torch.Tensor
     v: torch.Tensor
     d_left: torch.Tensor | None = None
     d_right: torch.Tensor | None = None
+    mesh: Any = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            _check_mesh(self.mesh)
 
     # -- geometry -----------------------------------------------------------
 
@@ -104,7 +116,6 @@ class SvdState:
                    mesh=None) -> "SvdState":
         """SVD of a dense matrix (``torch.linalg.svd``): the full paper state
         for ``rank=None`` (requires m <= n), else the rank-r truncated state."""
-        _no_mesh(mesh)
         x = _tensor(x, resolve_device(device), dtype)
         if x.dim() != 2:
             raise ValueError(f"from_dense expects a 2-D matrix; got {tuple(x.shape)}")
@@ -114,18 +125,17 @@ class SvdState:
                 raise ValueError("full SvdState requires m <= n; transpose the problem "
                                  "or pass rank= for a truncated state")
             u, s, vh = torch.linalg.svd(x, full_matrices=True)
-            return cls(u=u, s=s, v=vh.mT.contiguous())
+            return cls(u=u, s=s, v=vh.mT.contiguous(), mesh=mesh)
         if rank > min(m, n):
             raise ValueError(f"rank {rank} exceeds min(m, n) = {min(m, n)}")
         u, s, vh = torch.linalg.svd(x, full_matrices=False)
         return cls(u=u[:, :rank].contiguous(), s=s[:rank].contiguous(),
-                   v=vh[:rank].mT.contiguous())
+                   v=vh[:rank].mT.contiguous(), mesh=mesh)
 
     @classmethod
     def from_factors(cls, u, s, v, *, device="cuda", dtype=None, mesh=None) -> "SvdState":
         """Wrap existing factors (full or truncated, stacked or single); ``v``
         holds the right singular vectors as COLUMNS."""
-        _no_mesh(mesh)
         dev = resolve_device(device)
         u, s, v = (_tensor(x, dev, dtype) for x in (u, s, v))
         if u.dim() != v.dim() or u.dim() != s.dim() + 1 or u.dim() not in (2, 3):
@@ -136,7 +146,7 @@ class SvdState:
         if v.shape[-1] != s.shape[-1] and v.shape[-1] != v.shape[-2]:
             raise ValueError(f"v has {v.shape[-1]} columns but s carries {s.shape[-1]} values "
                              f"(did you pass vt instead of v = vt.T?)")
-        return cls(u=u, s=s, v=v)
+        return cls(u=u, s=s, v=v, mesh=mesh)
 
     # -- transforms ---------------------------------------------------------
 
@@ -145,13 +155,15 @@ class SvdState:
 
     def to(self, dtype) -> "SvdState":
         cast = lambda x: None if x is None else x.to(dtype)  # noqa: E731
-        return SvdState(*(cast(x) for x in (self.u, self.s, self.v, self.d_left, self.d_right)))
+        return SvdState(*(cast(x) for x in (self.u, self.s, self.v, self.d_left, self.d_right)),
+                        mesh=self.mesh)
 
     def truncate(self, rank: int) -> "SvdState":
         """Keep the top-``rank`` triplets (drops the eigen diagnostics)."""
         if rank > self.rank:
             raise ValueError(f"cannot truncate rank {self.rank} state to {rank}")
-        return SvdState(u=self.u[..., :, :rank], s=self.s[..., :rank], v=self.v[..., :, :rank])
+        return SvdState(u=self.u[..., :, :rank], s=self.s[..., :rank], v=self.v[..., :, :rank],
+                        mesh=self.mesh)
 
     def materialize(self) -> torch.Tensor:
         """Dense ``A = u @ diag(s) @ v_k^T`` (full states use ``v[:, :m]``)."""

@@ -3,19 +3,22 @@
 Counterpart of ``repro.api.update``.  Dispatch is a function of the state's
 geometry and the policy:
 
-    state.is_full   state.is_batched   route
-    -------------   ----------------   ------------------------------
-    yes             no                 engine.update
-    yes             yes                engine.update_batch
-    no              no                 engine.update_truncated (Brand)
-    no              yes                engine.update_truncated_batch
+    state.is_full   state.is_batched   policy.mesh   route
+    -------------   ----------------   -----------   ------------------------------
+    yes             no                 (ignored)     engine.update
+    yes             yes                None          engine.update_batch
+    yes             yes                Mesh          its mesh row (batch split over the axis)
+    no              no                 (ignored)     engine.update_truncated (Brand)
+    no              yes                None          engine.update_truncated_batch
+    no              yes                Mesh          its mesh row
 
 ``update_rank_k`` applies k rank-1 pairs in order through the engine's
 rank-k entry points; ``apply`` / ``apply_many`` (structured updates) live in
 ``updates.planner`` and are reached from here lazily, since the planner
-builds on this module.  The update runs on the state's device.  ``warmup``
-readies a (policy, geometry) pair before traffic (``SvdEngine.warmup``).
-Not ported, and refused by name: mesh placement (ROADMAP A7).
+builds on this module.  The update runs on the state's device, a mesh row on
+the devices of the mesh's batch axis (``policy.mesh``, else the state's
+``mesh``), gathered back on the state's device.  ``warmup`` readies a
+(policy, geometry) pair before traffic (``SvdEngine.warmup``).
 """
 
 from __future__ import annotations
@@ -67,10 +70,8 @@ def _vec(x, st: SvdState) -> torch.Tensor:
 
 def _prepare(state, policy: UpdatePolicy | None):
     """The policy (default filled in) and the state, cast to the policy's
-    storage dtype; mesh placement is refused."""
+    storage dtype."""
     policy = policy if policy is not None else _DEFAULT_POLICY
-    if policy.mesh is not None:
-        raise NotImplementedError("mesh-sharded updates are not ported yet (ROADMAP A7)")
     st = as_state(state)
     if policy.storage_dtype is not None and st.dtype != policy.storage_dtype:
         st = st.to(policy.storage_dtype)
@@ -91,19 +92,22 @@ def update(state, a, b, policy: UpdatePolicy | None = None) -> SvdState:
     policy, st = _prepare(state, policy)
     a, b = _vec(a, st), _vec(b, st)
     eng = engine_for(policy, st)
+    mesh = dict(mesh=policy.mesh if policy.mesh is not None else st.mesh,
+                batch_axis=policy.batch_axis)
     if st.is_full:
         if st.is_batched:
-            res = eng.update_batch(st.u, st.s, st.v, a, b)
+            res = eng.update_batch(st.u, st.s, st.v, a, b, **mesh)
         else:
             res = eng.update(st.u, st.s, st.v, a, b)
-        out = SvdState(u=res.u, s=res.s, v=res.v, d_left=res.d_left, d_right=res.d_right)
+        out = SvdState(u=res.u, s=res.s, v=res.v, d_left=res.d_left, d_right=res.d_right,
+                       mesh=st.mesh)
     else:
         t = TruncatedSvd(u=st.u, s=st.s, v=st.v)
         if st.is_batched:
-            t2 = eng.update_truncated_batch(t, a, b)
+            t2 = eng.update_truncated_batch(t, a, b, **mesh)
         else:
             t2 = eng.update_truncated(t, a, b)
-        out = SvdState(u=t2.u, s=t2.s, v=t2.v)
+        out = SvdState(u=t2.u, s=t2.s, v=t2.v, mesh=st.mesh)
     return _finish(out, policy)
 
 
@@ -131,7 +135,7 @@ def update_many(states: Sequence, A, B, policy: UpdatePolicy | None = None) -> t
         b_stack = torch.stack([_vec(B[i], sts[i]) for i in idxs])
         batched = update(stacked, a_stack, b_stack, policy)
         for j, i in enumerate(idxs):
-            out[i] = unstack_tree(batched, j)
+            out[i] = unstack_tree(batched, j).replace(mesh=sts[i].mesh)
     return tuple(out)
 
 
@@ -151,19 +155,22 @@ def update_rank_k(state, A, B, policy: UpdatePolicy | None = None) -> SvdState:
     policy, st = _prepare(state, policy)
     A, B = _vec(A, st), _vec(B, st)
     eng = engine_for(policy, st)
+    mesh = dict(mesh=policy.mesh if policy.mesh is not None else st.mesh,
+                batch_axis=policy.batch_axis)
     if st.is_full:
         if st.is_batched:
-            res = eng.update_rank_k_batch(st.u, st.s, st.v, A, B)
+            res = eng.update_rank_k_batch(st.u, st.s, st.v, A, B, **mesh)
         else:
             res = eng.update_rank_k(st.u, st.s, st.v, A, B)
-        out = SvdState(u=res.u, s=res.s, v=res.v, d_left=res.d_left, d_right=res.d_right)
+        out = SvdState(u=res.u, s=res.s, v=res.v, d_left=res.d_left, d_right=res.d_right,
+                       mesh=st.mesh)
     else:
         t = TruncatedSvd(u=st.u, s=st.s, v=st.v)
         if st.is_batched:
-            t2 = eng.update_truncated_rank_k_batch(t, A, B)
+            t2 = eng.update_truncated_rank_k_batch(t, A, B, **mesh)
         else:
             t2 = eng.update_truncated_rank_k(t, A, B)
-        out = SvdState(u=t2.u, s=t2.s, v=t2.v)
+        out = SvdState(u=t2.u, s=t2.s, v=t2.v, mesh=st.mesh)
     return _finish(out, policy)
 
 
@@ -196,6 +203,8 @@ def warmup(policy: UpdatePolicy, *, m: int, n: int, batch: int | None = None,
     ``cache_dir`` points the kernels' build cache there
     (``api.cache.enable_compilation_cache``): a later process warming the
     same route loads the libraries compiled there instead of running nvcc.
+    Under ``policy.mesh`` a batched form warms the mesh row: its cache key
+    and the per-slice geometry on each device of the batch axis.
 
     >>> from repro_torch import api
     >>> pol = api.UpdatePolicy(method="direct")
@@ -207,9 +216,8 @@ def warmup(policy: UpdatePolicy, *, m: int, n: int, batch: int | None = None,
         from repro_torch.api.cache import enable_compilation_cache
 
         enable_compilation_cache(cache_dir)
-    if policy.mesh is not None:
-        raise NotImplementedError("mesh-sharded updates are not ported yet (ROADMAP A7)")
     if policy.storage_dtype is not None:
         dtype = policy.storage_dtype
     eng = engine_from_key(policy, n if rank is None else rank + 1, m=m, n=n, rank=rank)
-    return eng.warmup(batch=batch, m=m, n=n, rank=rank, k=k, dtype=dtype, device=device)
+    return eng.warmup(batch=batch, m=m, n=n, rank=rank, k=k, dtype=dtype, device=device,
+                      mesh=policy.mesh, batch_axis=policy.batch_axis)

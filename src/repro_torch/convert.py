@@ -3,7 +3,9 @@
 ``state_from_arrays`` builds the port's ``SvdState`` from the leaves of a
 reference ``SvdState`` (given as numpy arrays); ``state_to_arrays`` returns
 the port's leaves as numpy arrays (16-bit leaves come back as float32, which
-numpy can hold).
+numpy can hold).  The snapshot converters carry a service's or a fleet's
+snapshot between the packages as its leaves (numpy, in the reference's
+pytree order) and its aux spec.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 from repro_torch.api.policy import as_torch_dtype
 from repro_torch.api.state import SvdState, resolve_device
 
-__all__ = ["snapshot_from_reference", "snapshot_to_reference", "state_from_arrays",
+__all__ = ["fleet_snapshot_from_reference", "fleet_snapshot_to_reference",
+           "snapshot_from_reference", "snapshot_to_reference", "state_from_arrays",
            "state_to_arrays"]
 
 _FIELDS = ("u", "s", "v", "d_left", "d_right")
@@ -62,3 +65,18 @@ def snapshot_to_reference(snap) -> tuple[list, dict]:
     from repro_torch.train.checkpoint import _to_numpy
 
     return [_to_numpy(x) for x in snap.leaves()], snap.aux()
+
+
+def fleet_snapshot_from_reference(leaves, aux: dict):
+    """The port's ``FleetSnapshot`` of a reference fleet snapshot's leaves
+    (numpy, in its pytree order) and aux spec; restore it with
+    ``SvdFleet.from_snapshot(snap, device=...)``."""
+    from repro_torch.fleet import FleetSnapshot
+
+    return FleetSnapshot.from_leaves([np.asarray(x) for x in leaves], aux)
+
+
+def fleet_snapshot_to_reference(snap) -> tuple[list, dict]:
+    """``(leaves, aux)`` of a port ``FleetSnapshot``, as
+    ``snapshot_to_reference`` gives them for a service."""
+    return snapshot_to_reference(snap)

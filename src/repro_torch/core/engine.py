@@ -9,8 +9,18 @@ fills that cache for a geometry and builds the CUDA libraries the route will
 launch (``kernels._build.library``), so that the first call under traffic
 compiles nothing.  Single updates add and remove
 that dimension.  The rank-k entry points (the reference's ``lax.scan`` of k
-rank-1 updates) are a Python loop of k calls to the same rank-1 body.  Mesh
-dispatch is not ported (ROADMAP A7).
+rank-1 updates) are a Python loop of k calls to the same rank-1 body.
+
+Mesh rows: the four batched entry points take ``mesh=`` (a
+``dist.mesh.Mesh``) and ``batch_axis=``, the counterpart of the reference's
+``shard_map`` dispatch.  The batch is padded to a multiple of the axis size
+by repeating its last member, split into contiguous slices, one per entry of
+the axis, and each slice runs the same route on that entry's device (the
+kernels launch there, on its current stream); the results are gathered on
+the input's device and the padding is sliced off.  Nothing crosses between
+slices: the update is independent per member.  ``sharding=``
+(``dist.batch_sharding``) sends every batched call without a ``mesh`` the
+same way.
 
 Float32 matrix products run in full float32: each call sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -69,13 +79,19 @@ def _stack(xs):
     return None if any(x is None for x in xs) else torch.stack(xs)
 
 
+def _data_fields(tree) -> tuple:
+    """A dataclass's tensor fields: its ``tree_fields`` when it names them
+    (the rest, such as ``SvdState.mesh``, is metadata carried as is)."""
+    return getattr(tree, "tree_fields", None) or tuple(f.name for f in dataclasses.fields(tree))
+
+
 def stack_trees(trees):
     """Stack identically shaped states (dataclasses or tuples of tensors) on a
     new leading batch dimension; a field that is ``None`` anywhere stays ``None``."""
     first = trees[0]
     if dataclasses.is_dataclass(first):
-        return type(first)(**{f.name: _stack([getattr(t, f.name) for t in trees])
-                              for f in dataclasses.fields(first)})
+        return dataclasses.replace(first, **{f: _stack([getattr(t, f) for t in trees])
+                                             for f in _data_fields(first)})
     return type(first)(*(_stack(xs) for xs in zip(*trees)))
 
 
@@ -83,8 +99,7 @@ def unstack_tree(tree, i: int):
     """Batch element ``i`` of a stacked state (dataclass or tuple of tensors)."""
     pick = lambda x: None if x is None else x[i]  # noqa: E731
     if dataclasses.is_dataclass(tree):
-        return type(tree)(**{f.name: pick(getattr(tree, f.name))
-                             for f in dataclasses.fields(tree)})
+        return dataclasses.replace(tree, **{f: pick(getattr(tree, f)) for f in _data_fields(tree)})
     return type(tree)(*(pick(x) for x in tree))
 
 
@@ -98,9 +113,24 @@ def _geometry(kind: str, *tensors) -> tuple:
     return (kind,) + tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded updates are not ported yet (ROADMAP A7)")
+def _pad_batch(tensors: tuple, size: int) -> tuple:
+    """Pad the leading batch dim to a multiple of ``size`` by repeating the
+    last member (a real update whose result is discarded)."""
+    pad = (-tensors[0].shape[0]) % size
+    if pad == 0:
+        return tensors
+    return tuple(torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])]) for x in tensors)
+
+
+def _on(dev: torch.device):
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _gather(outs: list, home: torch.device, b: int):
+    """Concatenate per-slice results (named tuples) on ``home``, first ``b`` rows."""
+    fields = zip(*outs)
+    return type(outs[0])(*(None if xs[0] is None else torch.cat([x.to(home) for x in xs])[:b]
+                           for xs in fields))
 
 
 class SvdEngine:
@@ -109,7 +139,7 @@ class SvdEngine:
 
     def __init__(self, *, method: str = "direct", fmm_p: int = 20, sign_fix: bool = True,
                  deflate_rtol: float | None = None, precision: str | None = None,
-                 storage_dtype: torch.dtype | None = None):
+                 storage_dtype: torch.dtype | None = None, sharding=None):
         if method not in ("direct", "fmm", "kernel", "fused"):
             raise ValueError(f"unknown method {method!r}")
         if precision not in _PRECISION:
@@ -122,8 +152,15 @@ class SvdEngine:
         self.storage_dtype = storage_dtype
         self.compute_dtype = (torch.float32 if storage_dtype is not None
                               and storage_dtype.itemsize <= 2 else None)
+        if sharding is not None:
+            from repro_torch.dist.sharding import BatchSharding
+
+            if not isinstance(sharding, BatchSharding):
+                raise TypeError(f"sharding must be a dist.BatchSharding; got "
+                                f"{type(sharding).__name__}")
+        self.sharding = sharding
         self._geometries: set = set()
-        self._built: set = set()     # (geometry key, device type) warmed
+        self._built: set = set()     # (geometry key, device) warmed
         self._hits = 0
         self._misses = 0
         self._lock = threading.Lock()
@@ -194,14 +231,47 @@ class SvdEngine:
         out = self._full(u[None], s[None], v[None], a[None], b[None])
         return SvdUpdateResult(*(x[0] for x in out))
 
-    def update_batch(self, u, s, v, a, b, *, mesh=None) -> SvdUpdateResult:
+    def _placement(self, mesh, batch_axis: str) -> tuple:
+        """``(mesh, axis)`` a batched call spreads over: ``mesh``, else the
+        engine's ``sharding``; a None mesh runs the call locally."""
+        if mesh is None and self.sharding is not None:
+            return self.sharding.mesh, self.sharding.axis
+        if mesh is not None:
+            from repro_torch.dist.mesh import check_mesh
+
+            check_mesh(mesh).axis_size(batch_axis)
+        return mesh, batch_axis
+
+    def _batched(self, kind: str, run, tensors: tuple, mesh, batch_axis: str):
+        """``run(*tensors)`` over the batch, locally or over ``batch_axis``
+        of the mesh: the batch padded to a multiple of the axis size,
+        contiguous slices, one per entry of the axis, each run on that
+        entry's device, the results gathered on the input's device and the
+        padding sliced off.  The geometry key of a mesh call carries
+        ``("shard", mesh, batch_axis)`` and the padded batch."""
+        mesh, batch_axis = self._placement(mesh, batch_axis)
+        if mesh is None:
+            self._count(_geometry(kind, *tensors))
+            return run(*tensors)
+        devs = mesh.batch_devices(batch_axis)
+        b, home = tensors[0].shape[0], tensors[0].device
+        padded = _pad_batch(tensors, len(devs))
+        self._count(("shard", mesh, batch_axis) + _geometry(kind, *padded))
+        per = padded[0].shape[0] // len(devs)
+        outs = []
+        for j, dev in enumerate(devs):
+            part = tuple(x[j * per:(j + 1) * per].to(dev) for x in padded)
+            with _on(dev):
+                outs.append(run(*part))
+        return _gather(outs, home, b)
+
+    def update_batch(self, u, s, v, a, b, *, mesh=None, batch_axis: str = "data") -> SvdUpdateResult:
         """B stacked updates: ``u`` (B, m, m), ``s`` (B, m), ``v`` (B, n, n),
-        ``a`` (B, m), ``b`` (B, n)."""
-        _no_mesh(mesh)
+        ``a`` (B, m), ``b`` (B, n).  With ``mesh`` the batch is split over
+        ``batch_axis`` (see ``_batched``)."""
         if u.dim() != 3:
             raise ValueError(f"update_batch expects stacked (B, m, m) u; got {tuple(u.shape)}")
-        self._count(_geometry("batch", u, s, v, a, b))
-        return self._full(u, s, v, a, b)
+        return self._batched("batch", self._full, (u, s, v, a, b), mesh, batch_axis)
 
     def update_truncated(self, tsvd, a, b) -> TruncatedSvd:
         """One Brand-truncated update: ``u`` (m, r), ``s`` (r,), ``v`` (n, r)."""
@@ -210,14 +280,14 @@ class SvdEngine:
                           a[None], b[None])
         return TruncatedSvd(*(x[0] for x in out))
 
-    def update_truncated_batch(self, tsvd, a, b, *, mesh=None) -> TruncatedSvd:
+    def update_truncated_batch(self, tsvd, a, b, *, mesh=None,
+                               batch_axis: str = "data") -> TruncatedSvd:
         """B stacked truncated updates: ``u`` (B, m, r), ``s`` (B, r), ``v`` (B, n, r)."""
-        _no_mesh(mesh)
         if tsvd.u.dim() != 3:
             raise ValueError(f"update_truncated_batch expects stacked (B, m, r) u; "
                              f"got {tuple(tsvd.u.shape)}")
-        self._count(_geometry("trunc_batch", tsvd.u, tsvd.s, tsvd.v, a, b))
-        return self._trunc(TruncatedSvd(tsvd.u, tsvd.s, tsvd.v), a, b)
+        return self._batched("trunc_batch", lambda u, s, v, a_, b_: self._trunc(
+            TruncatedSvd(u, s, v), a_, b_), (tsvd.u, tsvd.s, tsvd.v, a, b), mesh, batch_axis)
 
     # -- rank-k entry points: k rank-1 pairs applied in row order ------------
 
@@ -228,14 +298,13 @@ class SvdEngine:
         out = self._full_k(u[None], s[None], v[None], va[None], vb[None])
         return SvdUpdateResult(*(None if x is None else x[0] for x in out))
 
-    def update_rank_k_batch(self, u, s, v, va, vb, *, mesh=None) -> SvdUpdateResult:
+    def update_rank_k_batch(self, u, s, v, va, vb, *, mesh=None,
+                            batch_axis: str = "data") -> SvdUpdateResult:
         """B stacked k-step updates: ``u`` (B, m, m), ``va`` (B, k, m), ..."""
-        _no_mesh(mesh)
         if u.dim() != 3:
             raise ValueError(f"update_rank_k_batch expects stacked (B, m, m) u; "
                              f"got {tuple(u.shape)}")
-        self._count(_geometry("rank_k_batch", u, s, v, va, vb))
-        return self._full_k(u, s, v, va, vb)
+        return self._batched("rank_k_batch", self._full_k, (u, s, v, va, vb), mesh, batch_axis)
 
     def update_truncated_rank_k(self, tsvd, va, vb) -> TruncatedSvd:
         """k sequential truncated updates: ``va`` (k, m), ``vb`` (k, n)."""
@@ -244,33 +313,41 @@ class SvdEngine:
                             va[None], vb[None])
         return TruncatedSvd(*(x[0] for x in out))
 
-    def update_truncated_rank_k_batch(self, tsvd, va, vb, *, mesh=None) -> TruncatedSvd:
+    def update_truncated_rank_k_batch(self, tsvd, va, vb, *, mesh=None,
+                                      batch_axis: str = "data") -> TruncatedSvd:
         """B stacked k-step truncated updates: ``va`` (B, k, m), ``vb`` (B, k, n)."""
-        _no_mesh(mesh)
         if tsvd.u.dim() != 3:
             raise ValueError(f"update_truncated_rank_k_batch expects stacked (B, m, r) u; "
                              f"got {tuple(tsvd.u.shape)}")
-        self._count(_geometry("trunc_rank_k_batch", tsvd.u, tsvd.s, tsvd.v, va, vb))
-        return self._trunc_k(TruncatedSvd(tsvd.u, tsvd.s, tsvd.v), va, vb)
-
+        return self._batched("trunc_rank_k_batch", lambda u, s, v, a_, b_: self._trunc_k(
+            TruncatedSvd(u, s, v), a_, b_), (tsvd.u, tsvd.s, tsvd.v, va, vb), mesh, batch_axis)
 
     # -- warmup ---------------------------------------------------------------
 
     def warmup(self, *, batch: int | None, m: int, n: int, rank: int | None = None,
-               k: int | None = None, dtype=torch.float32, device="cuda") -> EngineCacheInfo:
+               k: int | None = None, dtype=torch.float32, device="cuda", mesh=None,
+               batch_axis: str = "data") -> EngineCacheInfo:
         """Warm one geometry before traffic: its entry in the geometry cache
         (counted as the reference counts its AOT compile: one miss, then
         hits), and, on a CUDA device, the libraries of the kernels the route
         launches, built and loaded, with the fused kernels' launch plan for
         the batch.  ``rank=None`` warms the full update, else the truncated
         one; ``batch=None`` the single form; ``k`` the rank-k form.  The key
-        includes ``dtype``: warm with the dtype real traffic stores.  Returns
-        ``cache_info()``."""
+        includes ``dtype``: warm with the dtype real traffic stores.  A
+        batched form under ``mesh`` (or the engine's ``sharding``) warms the
+        mesh row's key and the per-slice geometry on each entry's device.
+        Returns ``cache_info()``."""
         from repro_torch.api.policy import as_torch_dtype
         from repro_torch.api.state import resolve_device
 
-        dev = resolve_device(device)
         dt = as_torch_dtype(dtype)
+        devs = (resolve_device(device),)
+        prefix = ()
+        mesh, batch_axis = self._placement(mesh, batch_axis)
+        if mesh is not None and batch is not None:
+            devs = mesh.batch_devices(batch_axis)
+            prefix = ("shard", mesh, batch_axis)
+            batch += (-batch) % len(devs)
         lead = () if batch is None else (batch,)
         pair = ((m,), (n,)) if k is None else ((k, m), (k, n))
         if rank is None:
@@ -280,16 +357,20 @@ class SvdEngine:
             leaves = ((m, rank), (rank,), (n, rank))
             kind = ("trunc", "trunc_batch", "trunc_rank_k",
                     "trunc_rank_k_batch")[(batch is not None) + 2 * (k is not None)]
-        key = (kind,) + tuple((lead + shp, dt) for shp in leaves + pair)
+        key = prefix + (kind,) + tuple((lead + shp, dt) for shp in leaves + pair)
         self._count(key)
-        if (key, dev.type) not in self._built:
+        per = None if batch is None else batch // len(devs)
+        for dev in dict.fromkeys(devs):
+            if (key, dev) in self._built:
+                continue
             span_kw = {} if rank is None else {"rank": rank}
-            with _obs.span("aot_warmup", kind=kind, batch=batch or 0, m=m, n=n, **span_kw,
+            with _obs.span("aot_warmup", kind=kind, batch=per or 0, m=m, n=n, **span_kw,
                            k=k or 0):
                 if dev.type == "cuda":
-                    self._build_route(batch or 1, m, n, rank, dt)
+                    with _on(dev):
+                        self._build_route(per or 1, m, n, rank, dt)
             with self._lock:
-                self._built.add((key, dev.type))
+                self._built.add((key, dev))
         return self.cache_info()
 
     def _build_route(self, bsz: int, m: int, n: int, rank: int | None, dt: torch.dtype) -> None:

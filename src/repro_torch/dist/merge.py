@@ -31,10 +31,12 @@ the planner's ``AppendRows`` lowering (``merge_append``).  Each level is a
 ``merge_level`` span and bumps the ``merge_levels`` / ``merge_pairs`` /
 ``merge_wire_bytes`` counters when observability is on.
 
-``distributed_merge`` (the cross-card form: an all-gather of the factors,
-then this tree on every worker) is refused by name until the mesh tier is
-ported (ROADMAP A7).  Shards may be ``SvdState`` or ``TruncatedSvd``; the
-result comes back in the container type of the first shard.
+``distributed_merge`` is the cross-process form: an all-gather of each
+worker's factors over a ``torch.distributed`` group
+(``dist.collectives.all_gather_tsvd``), then this tree on every worker, so
+every worker ends with the same result.  Shards may be ``SvdState`` or
+``TruncatedSvd``; the result comes back in the container type of the first
+shard.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from repro_torch.api.state import SvdState, like_container as _like
 from repro_torch.api.update import engine_from_key
 from repro_torch.core.engine import SvdEngine, stack_trees, unstack_tree
 from repro_torch.core.svd_update import TruncatedSvd
-from repro_torch.dist.collectives import factor_wire_bytes
+from repro_torch.dist.collectives import all_gather_tsvd, factor_wire_bytes
 from repro_torch.updates.ops import AppendRows
 from repro_torch.updates.planner import apply as _planned_apply
 
@@ -221,10 +223,17 @@ def merge_tree(shards, *, rank: int | None = None, engine: SvdEngine | None = No
     return out
 
 
-def distributed_merge(local, axis_name, *, rank: int | None = None,
+def distributed_merge(local, group, *, rank: int | None = None,
                       engine: SvdEngine | None = None, method: str = "direct",
                       policy: UpdatePolicy | None = None):
-    """Merge per-worker truncated SVDs across cards (not ported: ROADMAP A7)."""
-    raise NotImplementedError(
-        "distributed_merge needs the mesh tier, which is not ported yet (ROADMAP A7); "
-        "merge_tree merges shards that live in one process")
+    """Merge per-worker truncated SVDs across a process group (every rank
+    calls it).
+
+    ``all_gather_tsvd`` moves only the ``(m, r) + (r,) + (n, r)`` factors; the
+    log-depth tree then runs identically on every worker, so each ends with
+    the rank-r SVD of the row-stacked matrix ``[M_1; ...; M_W]`` (rows in rank
+    order).  ``group=None`` is the single worker: the merge of its own shard.
+    """
+    gathered = all_gather_tsvd(local, group)
+    shards = [unstack_tree(gathered, i) for i in range(gathered.u.shape[0])]
+    return merge_tree(shards, rank=rank, engine=engine, method=method, policy=policy)

@@ -44,8 +44,14 @@ host-side pairs are stacked on the host and copied in one transfer.
 
 Snapshots (``ServiceSnapshot``, version 7) keep the reference's leaf order
 and aux spec and go through ``train.checkpoint``'s shared on-disk layout, so
-a snapshot written by either package restores in the other.  Not ported:
-mesh placement (``policy.mesh``, ROADMAP A7).
+a snapshot written by either package restores in the other.
+
+Placement: ``policy.mesh`` (a ``dist.mesh.Mesh``) spreads every round's
+batch over the mesh's ``batch_axis`` through the engine's mesh rows.  The
+mesh is runtime placement, not state: snapshots record only that one was set
+(``had_mesh``); pass ``mesh=`` (or a full ``policy=``) to ``restore`` on the
+new topology.  Unlike the reference, mesh rounds enter the warmed set too,
+and a restore under a mesh warms each entry's per-slice geometry.
 """
 
 from __future__ import annotations
@@ -141,14 +147,9 @@ def _policy_spec(policy: UpdatePolicy) -> dict:
     return spec
 
 
-def _policy_from_spec(spec: dict) -> UpdatePolicy:
-    return UpdatePolicy(**{f: spec.get(f, _POLICY_SPEC_DEFAULTS.get(f))
-                           for f in _POLICY_SPEC_FIELDS})
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded serving is not ported yet (ROADMAP A7)")
+def _policy_from_spec(spec: dict, mesh=None) -> UpdatePolicy:
+    return UpdatePolicy(mesh=mesh, **{f: spec.get(f, _POLICY_SPEC_DEFAULTS.get(f))
+                                      for f in _POLICY_SPEC_FIELDS})
 
 
 def _host(x) -> np.ndarray:
@@ -368,7 +369,6 @@ class SvdService:
         if max_in_flight < 0:
             raise ValueError(f"max_in_flight must be >= 0; got {max_in_flight}")
         self.policy = policy if policy is not None else UpdatePolicy(method=method)
-        _refuse_mesh(self.policy.mesh)
         self.engine = engine            # explicit override; None -> policy-derived
         self.max_batch = max_batch
         self.pad_to_bucket = pad_to_bucket
@@ -837,11 +837,13 @@ class SvdService:
             eng = self._engine_for(r)
             kind = "trunc_batch" if k == 1 else f"trunc_scan{k}"
             self._record_warm(kind, bsz + pad, m, n, r, dt)
+            placement = dict(mesh=self.policy.mesh, batch_axis=self.policy.batch_axis)
             with _obs.span("dispatch", m=m, n=n, rank=r, batch=bsz + pad, depth=k):
                 if k == 1:
-                    out = eng.update_truncated_batch(t_stack, a_stack, b_stack)
+                    out = eng.update_truncated_batch(t_stack, a_stack, b_stack, **placement)
                 else:
-                    out = eng.update_truncated_rank_k_batch(t_stack, a_stack, b_stack)
+                    out = eng.update_truncated_rank_k_batch(t_stack, a_stack, b_stack,
+                                                            **placement)
                     self.stats.scan_rounds += 1
                     self.stats.max_depth = max(self.stats.max_depth, k)
             if sample_due and probe_args is None and k == 1:
@@ -957,16 +959,17 @@ class SvdService:
     ) -> "SvdService":
         """Rebuild a service from a snapshot, its states on ``device``, and
         warm every entry of its warmed set there before returning (skipped
-        under an explicit ``engine``, whose caches the caller manages)."""
-        _refuse_mesh(mesh)
+        under an explicit ``engine``, whose caches the caller manages).
+        ``policy`` (a full override) or ``mesh`` (grafted onto the recorded
+        policy spec) re-establish placement on the restoring topology."""
         dev = resolve_device(device)
         spec = dict(snap.policy_spec)
         if policy is None:
-            if spec.get("had_mesh"):
-                warnings.warn("snapshot was taken under a mesh-sharded policy; this port "
-                              "has no mesh (ROADMAP A7): flushes run on one device",
+            if spec.get("had_mesh") and mesh is None:
+                warnings.warn("snapshot was taken under a mesh-sharded policy but restore "
+                              "got no mesh= (and no policy=): flushes run unsharded",
                               stacklevel=2)
-            policy = _policy_from_spec(spec)
+            policy = _policy_from_spec(spec, mesh=mesh)
         svc = cls(engine=engine, max_batch=snap.max_batch, pad_to_bucket=snap.pad_to_bucket,
                   max_in_flight=snap.max_in_flight, policy=policy)
         n_streams = len(snap.stream_ids)
@@ -1046,10 +1049,10 @@ class SvdService:
         the same later traffic, gives the same bits as one that never
         stopped.  ``cache_dir`` points the kernels' build cache there first
         (``api.enable_compilation_cache``)."""
-        _refuse_mesh(mesh)
         if cache_dir is not None:
             from repro_torch.api.cache import enable_compilation_cache
 
             enable_compilation_cache(cache_dir)
         step, snap = ServiceSnapshot.load(ckpt_dir, step)
-        return step, cls.from_snapshot(snap, engine=engine, policy=policy, device=device)
+        return step, cls.from_snapshot(snap, mesh=mesh, engine=engine, policy=policy,
+                                       device=device)

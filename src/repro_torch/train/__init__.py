@@ -1,1 +1,2 @@
-"""Training-side pieces of the port: so far the checkpoint layer (``train.checkpoint``)."""
+"""Training-side pieces of the port: the checkpoint layer (``train.checkpoint``) and
+the elastic planners (``train.elastic``)."""

@@ -531,7 +531,7 @@ def apply_many(states: Sequence, ops: Sequence[UpdateOp],
             else:
                 cur = _GEOMETRY_STEPS[step[0]](cur, step[1])
         for j, i in enumerate(idxs):
-            out[i] = SvdState(u=cur.u[j], s=cur.s[j], v=cur.v[j])
+            out[i] = SvdState(u=cur.u[j], s=cur.s[j], v=cur.v[j], mesh=sts[i].mesh)
     return tuple(out)
 
 

@@ -261,23 +261,31 @@ def test_creation_without_card_raises(monkeypatch):
 
 
 def test_unported_routes_raise_by_name():
+    """The one route the port refuses by name is ``method="fast"`` (a
+    benchmark baseline, not an engine route).  The mesh rows are ported: a
+    mesh must be a ``dist.Mesh`` (anything else is a TypeError), and a
+    ``dist.Mesh`` runs through update, warmup and the service; the cross-card
+    merge with no group is the single worker."""
     rng = np.random.default_rng(47)
     u, s, v, a, b = svd_problem(rng, 4, 6)
     st = convert.state_from_arrays(u, s, v, device="cpu")
     with pytest.raises(NotImplementedError, match="benchmark baseline"):
         api.update(st, a, b, api.UpdatePolicy(method="fast"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         api.update(st, a, b, api.UpdatePolicy(mesh=object()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         api.SvdState.from_factors(u, s, v, device="cpu", mesh=object())
-    # warmup is ported (its tests: test_torch_warmup.py); the cross-card
-    # merge and the mesh-sharded service still refuse by name
     from repro_torch import dist
     from repro_torch.serve import SvdService
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        api.warmup(api.UpdatePolicy(mesh=object()), m=4, n=6, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        dist.distributed_merge(st, "data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        SvdService(policy=api.UpdatePolicy(mesh=object()))
+    mesh = dist.make_host_mesh(2, device="cpu")
+    pol = api.UpdatePolicy(method="direct", mesh=mesh)
+    stacked = api.SvdState(u=st.u[None], s=st.s[None], v=st.v[None])
+    a1, b1 = torch.as_tensor(a)[None], torch.as_tensor(b)[None]
+    got = api.update(stacked, a1, b1, pol)
+    want = api.update(stacked, a1, b1, pol.replace(mesh=None))
+    assert all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("u", "s", "v"))
+    assert api.warmup(pol, m=4, n=6, batch=3, device="cpu").entries >= 1
+    merged = dist.distributed_merge(api.SvdState.from_factors(u, s, v[:, :4], device="cpu"), None)
+    assert torch.equal(merged.s, st.s)
+    assert SvdService(policy=pol).policy.mesh == mesh

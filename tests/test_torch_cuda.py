@@ -900,3 +900,60 @@ def test_warmup_builds_the_route_libraries(cuda_device):
     assert "fused_update_f32" in _build._libs
     out = updates.warmup_sketch(m=64, n=96, k=4, nnz=10, device=cuda_device)
     assert out[0].is_cuda and "sparse_proj" in _build._libs
+
+
+# -- the mesh rows and the fleet on the card ----------------------------------------------
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["A", "B"])
+def test_mesh_rows_equal_local_bits(cuda_device, full):
+    """A mesh of four entries of the one card splits B = 13 into padded
+    slices: kernels A and B give each update the same bits at every batch
+    size, so the mesh row equals the local call to the bit."""
+    from repro_torch.dist import make_host_mesh
+
+    rng = np.random.default_rng(90)
+    if full:
+        probs = [svd_problem(rng, 32, 48) for _ in range(13)]
+        sts = [convert.state_from_arrays(*p[:3], device=cuda_device) for p in probs]
+    else:
+        sts = [api.SvdState.from_dense(rng.normal(size=(64, 96)), 8, device=cuda_device)
+               for _ in range(13)]
+        probs = [(None, None, None, rng.normal(size=64), rng.normal(size=96)) for _ in range(13)]
+    pol = api.UpdatePolicy(method="fused")
+    A, B = [p[3] for p in probs], [p[4] for p in probs]
+    _build.reset_launches()
+    want = api.update_many(sts, A, B, pol)
+    got = api.update_many(sts, A, B, pol.replace(mesh=make_host_mesh(4)))
+    assert _build.LAUNCHES["fused_update" if full else "fused_update_truncated"] == 5
+    for g, w in zip(got, want):
+        assert g.u.is_cuda and all(torch.equal(getattr(g, f), getattr(w, f)) for f in "usv")
+
+
+def test_fleet_settle_and_drain_across_shard_counts(cuda_device):
+    """On the card a fleet's settle is the same bits on 1 and on 4 shards,
+    and so is its drain (kernel B's bits do not depend on the batch)."""
+    from repro_torch.fleet import SvdFleet
+
+    rng = np.random.default_rng(91)
+    states = [api.SvdState.from_dense(rng.normal(size=(64, 96)), 8, device="cpu")
+              for _ in range(12)]
+    traffic = [(f"s{i % 12}", rng.normal(size=64), rng.normal(size=96)) for i in range(60)]
+    out = {}
+    for shards in (1, 4):
+        for continuous in (True, False):
+            fl = SvdFleet(shards, policy=api.UpdatePolicy(method="fused"), devices="auto",
+                          continuous=continuous, max_batch=16 if continuous else 1 << 30)
+            for i, st in enumerate(states):
+                fl.register(f"s{i}", st)
+            for j, (sid, a, b) in enumerate(traffic):
+                fl.enqueue(sid, a, b)
+                if j % 7 == 6:
+                    fl.pump()
+            got = fl.settle([f"s{i}" for i in range(12)]) if not continuous else (
+                fl.drain(), [fl.state(f"s{i}") for i in range(12)])[1]
+            assert all(g.u.is_cuda for g in got)
+            out[(shards, continuous)] = got
+    for continuous in (True, False):
+        for x, y in zip(out[(1, continuous)], out[(4, continuous)]):
+            assert all(torch.equal(getattr(x, f), getattr(y, f)) for f in "usv")

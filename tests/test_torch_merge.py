@@ -6,8 +6,10 @@ at the reference's own tolerance (1e-6: trailing zero singular values come
 back as ~1e-7 of deflation noise from any rank-1 merge), and against the
 reference's ``merge_tree`` on the same numpy shards (f64).  Float32 shards
 are held to the stacked matrix's top-r SVD at ten times float32's
-sqrt(eps) (the same rule as 1e-6 in float64).  The cross-card form and the
-collectives refuse by name (ROADMAP A7).
+sqrt(eps) (the same rule as 1e-6 in float64).  The cross-process form and
+the collectives take a ``torch.distributed`` group; here only their
+single-worker meaning (``None``) and the refusal of anything that is not a
+group (``tests/test_torch_dist.py`` runs them in gloo worlds).
 """
 
 import numpy as np
@@ -266,9 +268,21 @@ def test_factor_wire_bytes_matches_reference(shape):
 
 
 def test_cross_card_forms_refuse_by_name():
+    """The cross-process forms are ported on ``torch.distributed``
+    (``tests/test_torch_dist.py`` runs them in gloo worlds).  A ``None``
+    group is the single worker: the factors pass through, the gather gains a
+    leading axis of 1 and the merge is the worker's own shard; a reference
+    axis name is no process group and is refused."""
     t = _tsvd(np.random.default_rng(5).normal(size=(10, N)), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        distributed_merge(t, "data")
+    assert collectives.pmean_factor(t.u, None) is t.u
+    assert collectives.psum_factor(t.u, None) is t.u
+    g = collectives.all_gather_tsvd(t, None)
+    assert isinstance(g, TruncatedSvd) and tuple(g.v.shape) == (1, N, 3)
+    merged = distributed_merge(t, None)
+    for f in ("u", "s", "v"):
+        assert torch.equal(getattr(merged, f), getattr(t, f))
     for fn in (collectives.pmean_factor, collectives.psum_factor, collectives.all_gather_tsvd):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            fn(t.u, "data")
+        with pytest.raises(TypeError, match="ProcessGroup"):
+            fn(t if fn is collectives.all_gather_tsvd else t.u, "data")
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        distributed_merge(t, "data")

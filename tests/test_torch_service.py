@@ -6,8 +6,8 @@ after a partial flush, with structured, sparse and downdate events pending;
 the v1–v5 back-compat paths; the version guard; async rounds equal to
 synchronous ones bitwise; backpressure; kill-and-resume in fresh processes,
 bitwise; restore warming its warmed set so the first flush adds no cache
-miss.  The mesh-sharded case waits for the mesh tier (ROADMAP A7) and is
-replaced by its refusal.
+miss.  A mesh must be a ``dist.Mesh``; the mesh-sharded service's parity
+tests are in ``tests/test_torch_mesh.py``.
 
 Parity with the reference: both services fed the same numpy states and
 events (f64) under ``direct``, ``pallas`` and ``fused`` (their plain versions
@@ -645,13 +645,22 @@ def test_snapshot_v3_aux_refuses_v5_and_loads_older(tmp_path):
 
 
 def test_mesh_refuses_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    """A mesh must be a ``dist.Mesh``: anything else is a TypeError at the
+    service and at restore; a ``dist.Mesh`` is taken by both (the mesh
+    parity tests are in ``tests/test_torch_mesh.py``)."""
+    from repro_torch.dist import make_host_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         SvdService(policy=api.UpdatePolicy(mesh=object()))
     svc = SvdService(max_batch=4)
     svc.register("x", _fresh(6, 7, 2))
     svc.save(tmp_path, step=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         SvdService.restore(tmp_path, mesh=object(), device="cpu")
+    mesh = make_host_mesh(2, device="cpu")
+    _, back = SvdService.restore(tmp_path, mesh=mesh, device="cpu")
+    assert back.policy.mesh == mesh
+    assert dict(back.snapshot().policy_spec)["had_mesh"] is True
 
 
 # -- parity with the reference service ---------------------------------------------------
