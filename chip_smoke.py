@@ -84,7 +84,23 @@ result) when it fails:
    no device time three times running, the device time comes from CUDA events
    and says so; the host's waits for the device
    in a round (``torch.cuda.set_sync_debug_mode``), host µs an enqueue; save,
-   restore and warm seconds at (s2); the (s3) round and merge.
+   restore and warm seconds at (s2); the (s3) round and merge;
+(t) the training path, ``train.loop.train`` (no kernel of its own; ``TRAIN_*``;
+   run right after the build, while the card's memory is empty):
+   (t1) granite-34b at its published widths, 2 of its 88 layers, batch 1 x
+   seq 4096, bf16 compute, remat "full": 6 AdamW steps, then 6 spectral-Adam
+   steps (rank 32, a refresh every 4), each from its own init; finite
+   losses, the first within 1 of ln(vocab); ms a step split into forward and
+   backward, the trackers' update, the refresh and the rest of the optimizer
+   (CUDA events on the pieces), peak memory against ``moment_memory_ratio``,
+   the device's busy share of a step (profiler) and its host waits (none in
+   an AdamW step that neither logs nor saves: a check); (t2) the card
+   against the port on the CPU at the smoke config, AdamW and spectral-Adam,
+   with planted faults (bias correction dropped, weight decay dropped, a
+   tracker update skipped); (t3) a run resumed at step 3 of 6 equal to the
+   uninterrupted one to the bit under deterministic algorithms, and a
+   spectral-Adam resume raising the reference's ``ValueError``; (t4)
+   ``examples/train_lm.py``'s repro-tiny run, 60 steps: the loss falls.
 
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
@@ -95,6 +111,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -328,6 +345,48 @@ FLEET = {"streams": 64, "m": 512, "n": 768, "r": 16, "pairs": 32, "sparse_after"
          "direct_streams": 16, "direct_pairs": 8, "pending_from": 16, "pending_to": 24}
 MESH_B = 13
 MERGE_F3 = {"shards": 4, "m": 1024, "n": 4096, "r": 32}
+# phase (t), the training path: (t1) granite-34b at its published widths
+# (src/repro_torch/configs/granite_34b.py: d_model 6144, 48 heads with one KV
+# head, head_dim 128, d_ff 24576 swiglu, vocab 49152, bf16 compute, f32
+# params, remat "full"), its 88 layers cut to 2 by one card's memory, batch 1
+# x seq 4096 (SHAPES["train_4k"]'s sequence; its batch of 256 cut to 1);
+# spectral-Adam at rank 32 with a refresh every 4 steps
+TRAIN_ARCH = "granite-34b"
+TRAIN_LAYERS = 2
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 6
+TRAIN_RANK = 32
+TRAIN_REFRESH = 4
+# the first loss of a random init: within 1 of ln(vocab), as the reference's
+# tests/test_models.py bounds a smoke model's
+TRAIN_FIRST_LOSS_SLACK = 1.0
+# (t2) the card against the port on the CPU at granite-34b's smoke config (3
+# layers, d 64, f32; TF32 off): 4 steps each of AdamW and spectral-Adam (rank
+# 8, no refresh), from one init, lr 1e-2 from the first step.  Relative max
+# differences: the losses, and each parameter leaf over its largest entry.
+# Two f32 implementations sum in other orders, and Adam's update is nearly
+# the sign of each gradient entry, so an entry rounded to the other sign
+# moves its parameter by 2 lr: the port and the reference on the CPU read
+# 1.1e-6 (losses) and 2.8e-3 (parameters) here, against which the limits sit
+# 9x and 3.6x above; the planted faults read 3.7e-4 and up (losses) and 5e-2
+# and up (parameters) in a CPU rehearsal, 37x and 5x above the limits.  The
+# trackers are not compared: a zero singular value leaves its pair free
+# (ROADMAP queue C)
+TRAIN_T2 = {"steps": 4, "rank": 8, "lr": 1e-2, "loss": 1e-5, "params": 1e-2}
+# (t2) again in bf16 compute, (t1)'s dtype: the first step's loss and
+# gradients from one init, and the losses of 4 AdamW steps.  A bf16 rounding
+# that one side takes to the other neighbour moves what follows by a bf16
+# ulp: the port and the reference on the CPU read 1.4e-5 (loss) and 7.4e-3
+# (gradients, of each leaf's largest entry; one bf16 ulp is 2**-8 to 2**-7)
+# for one step, and 5.4e-5 on the losses of 4 steps, against which the limits
+# sit 7x, 2.1x and 18x above.  The parameters are not compared: after 4 Adam
+# steps those two part by 0.34 of a leaf's largest entry (a gradient entry
+# near 0 takes the other sign, and Adam moves it by lr either way)
+TRAIN_T2_BF16 = {"loss": 1e-4, "grads": 2.0 ** -6, "losses": 1e-3}
+# (t4) examples/train_lm.py's default run (repro-tiny, batch 8, seq 128,
+# lr 1e-3, warmup 20), 60 steps of AdamW: the loss must fall
+TRAIN_T4 = {"steps": 60, "batch": 8, "seq": 128}
+
 # one world at a time, in this order: NCCL can take one rank a card, gloo
 # stages CUDA tensors through the host
 MERGE_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
@@ -652,7 +711,462 @@ def require(ok, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+def count_syncs(fn):
+    """Host waits for the device while ``fn`` runs, as
+    ``torch.cuda.set_sync_debug_mode`` reports them: (count, {file:line: count})."""
+    import collections
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter("/".join(Path(w.filename).parts[-2:]) + f":{w.lineno}"
+                                for w in caught
+                                if "called a synchronizing CUDA operation" in str(w.message))
+    return sum(where.values()), dict(where)
+
+
+def _tree_to(tree, device):
+    """A training state or parameter tree with every tensor on ``device``,
+    step counters (0-dim int32) left on the CPU where the port keeps them."""
+    import torch
+
+    from repro_torch._tree import tree_leaves, tree_unflatten
+
+    moved = [x if not isinstance(x, torch.Tensor) or (x.dim() == 0 and x.dtype == torch.int32)
+             else x.to(device) for x in tree_leaves(tree)]
+    return tree_unflatten(tree, moved)
+
+
+def _rel_max(got, want) -> float:
+    """Largest |got - want| over the largest |want|, leaf by leaf, the worst leaf."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if not isinstance(a, torch.Tensor) or not a.is_floating_point():
+            continue
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        worst = max(worst, float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+    return worst
+
+
+class _StepMemory:
+    """Bytes held and peak bytes over the pieces of one training step, by
+    patching the module attributes ``train_step`` calls: the forward and
+    backward (``loop.loss_and_grads``) and the optimizer
+    (``loop.adamw_update`` / ``loop.spectral_adam_update``).  Each piece
+    starts and ends with a host wait, so use it on a step that is not timed."""
+
+    NAMES = ("loss_and_grads", "adamw_update", "spectral_adam_update")
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.train import loop
+
+        self.torch, self.loop, self.marks = torch, loop, {}
+        self.saved = {n: getattr(loop, n) for n in self.NAMES}
+
+    def _wrap(self, name, fn):
+        cuda = self.torch.cuda
+
+        def measured(*args, **kwargs):
+            cuda.synchronize()
+            cuda.reset_peak_memory_stats()
+            before = cuda.memory_allocated()
+            out = fn(*args, **kwargs)
+            cuda.synchronize()
+            self.marks[name] = {"held_before": before, "peak": cuda.max_memory_allocated(),
+                                "held_after": cuda.memory_allocated()}
+            return out
+
+        return measured
+
+    def __enter__(self):
+        for n, fn in self.saved.items():
+            setattr(self.loop, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.loop, n, fn)
+
+
+def _card_bytes(tree) -> int:
+    import torch
+
+    from repro_torch._tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor) and x.is_cuda)
+
+
+class _StepClock:
+    """CUDA events around the pieces of a training step, by patching the
+    module attributes the step calls: the forward and backward
+    (``loop.loss_and_grads``), the optimizer (``loop.adamw_update`` /
+    ``loop.spectral_adam_update``) and, inside spectral-Adam, the trackers'
+    update (``spectral_update_basis_grouped``, the phase chain) and the
+    refresh (``_refresh``).  ``split()`` gives each step's ms by piece."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.optim import spectral_adam as SA
+        from repro_torch.train import loop
+
+        self.torch, self.marks = torch, []
+        self.patches = [(loop, "loss_and_grads"), (loop, "adamw_update"),
+                        (loop, "spectral_adam_update"), (SA, "spectral_update_basis_grouped"),
+                        (SA, "_refresh")]
+        self.saved = [getattr(m, n) for m, n in self.patches]
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            e0 = self.torch.cuda.Event(enable_timing=True)
+            e1 = self.torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            self.marks.append((name, e0, e1))
+            return out
+
+        return timed
+
+    def __enter__(self):
+        for (mod, name), fn in zip(self.patches, self.saved):
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.patches, self.saved):
+            setattr(mod, name, fn)
+
+    def split(self) -> list[dict]:
+        """Per step: fwd_bwd, the optimizer's pieces, and the step (the
+        first event of the forward to the optimizer's last)."""
+        self.torch.cuda.synchronize()
+        steps, cur = [], None
+        for name, e0, e1 in self.marks:
+            if name == "loss_and_grads":
+                cur = {"fwd_bwd_ms": e0.elapsed_time(e1), "_start": e0, "trackers_ms": 0.0,
+                       "refresh_ms": 0.0}
+                steps.append(cur)
+            elif name == "spectral_update_basis_grouped":
+                cur["trackers_ms"] += e0.elapsed_time(e1)
+            elif name == "_refresh":
+                cur["refresh_ms"] += e0.elapsed_time(e1)
+            else:
+                cur["optimizer_ms"] = e0.elapsed_time(e1)
+                cur["step_ms"] = cur.pop("_start").elapsed_time(e1)
+        for st in steps:
+            st["rest_of_optimizer_ms"] = st["optimizer_ms"] - st["trackers_ms"] - st["refresh_ms"]
+        return steps
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase (t): the training path on the card (``train.loop.train``).
+    (t1) granite-34b at full width, 2 layers, AdamW then spectral-Adam; (t2)
+    the card against the port on the CPU at the smoke config, with planted
+    faults; (t3) resume equal to the bit, and the spectral resume refusal;
+    (t4) examples/train_lm.py's repro-tiny run.  Raises on any failed check."""
+    import dataclasses as dc
+    import gc
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import ModelConfig, OptimizerConfig, RunConfig
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw as AW
+    from repro_torch.optim import spectral_adam as SA
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import loop
+
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    # -- (t1) granite-34b at full width ----------------------------------------
+    cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    api = build_model(cfg)
+    n_params = None
+    t1 = {}
+    for name, rank in (("adamw", 0), ("spectral_adam", TRAIN_RANK)):
+        opt = OptimizerConfig(warmup_steps=2, total_steps=100, spectral_rank=rank,
+                              basis_refresh_every=TRAIN_REFRESH if rank else 0)
+        run = RunConfig(model=cfg, optimizer=opt, steps=TRAIN_STEPS, log_every=1,
+                        checkpoint_every=0, checkpoint_dir=str(work / name), seed=0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with _StepClock() as clock:
+            res = loop.train(run, batch_size=1, seq_len=TRAIN_SEQ, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        split = clock.split()
+        losses = [v for _, v in res.losses]
+        require(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+                f"(t1) {name}: losses not finite: {losses}")
+        require(abs(losses[0] - math.log(cfg.vocab_size)) < TRAIN_FIRST_LOSS_SLACK,
+                f"(t1) {name}: first loss {losses[0]} not within {TRAIN_FIRST_LOSS_SLACK} of "
+                f"ln({cfg.vocab_size}) = {math.log(cfg.vocab_size):.3f}")
+
+        # one step outside the loop, from a fresh init: host waits (no log, no
+        # save) and the device's busy share (profiler)
+        params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        if rank:
+            ratio = SA.moment_memory_ratio(params, rank)
+        state = (SA.spectral_adam_init(torch.Generator(device=dev).manual_seed(1), params,
+                                       rank=rank, device=dev) if rank else AW.adamw_init(params))
+        holder = {"p": params, "s": state}
+        del params, state
+
+        def one_step(step, holder=holder, opt=opt, rank=rank):
+            batch = batch_for_step(0, step, batch=1, seq=TRAIN_SEQ, vocab=cfg.vocab_size,
+                                   device=dev)
+            holder["p"], holder["s"], _, _ = loop.train_step(api, opt, holder["p"], holder["s"],
+                                                             batch, step, spectral=bool(rank))
+
+        one_step(0)
+        waits, where = count_syncs(lambda: one_step(1))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_step(2)
+            torch.cuda.synchronize()
+            step_wall = (time.perf_counter() - t0) * 1e3
+        by_kernel = sorted(((ev.device_time_total / 1e3, ev.key[:60]) for ev in prof.key_averages()
+                            if ev.device_time_total > 0), reverse=True)
+        busy = sum(ms for ms, _ in by_kernel)
+        # and one more, to see where its bytes go: parameters and optimizer
+        # state held, the forward and backward's peak over them, the gradients
+        # it leaves, the optimizer's peak over all of those
+        param_b, state_b = _card_bytes(holder["p"]), _card_bytes(holder["s"])
+        gc.collect()
+        with _StepMemory() as mem:
+            one_step(3)
+        fb = mem.marks["loss_and_grads"]
+        op = mem.marks["spectral_adam_update" if rank else "adamw_update"]
+        memory = {"params": param_b, "optimizer_state": state_b,
+                  "held_before_step": fb["held_before"],
+                  "fwd_bwd_peak_over_held": fb["peak"] - fb["held_before"],
+                  "grads_held": fb["held_after"] - fb["held_before"],
+                  "optimizer_peak_over_held": op["peak"] - op["held_before"],
+                  "optimizer_leaves": op["held_after"] - op["held_before"],
+                  "step_peak": max(fb["peak"], op["peak"])}
+        del holder
+        gc.collect()
+        torch.cuda.empty_cache()
+        steady = split[1:]
+        mean = {k: statistics.mean(st[k] for st in steady)
+                for k in ("step_ms", "fwd_bwd_ms", "optimizer_ms", "trackers_ms", "refresh_ms",
+                          "rest_of_optimizer_ms")}
+        t1[name] = {"losses": losses, "wall_s": wall, "peak_bytes": peak, "steps": split,
+                    "mean_after_first": mean, "host_waits_a_step": waits, "waits_at": where,
+                    "profiled_step_ms": step_wall, "device_busy_ms": busy,
+                    "top_kernels_ms": by_kernel[:8],
+                    "device_share": busy / step_wall if step_wall > 0 else None,
+                    "memory_bytes": memory}
+        log(f"  (t1) {name}: losses {[round(v, 4) for v in losses]} | {wall:.1f} s for "
+            f"{TRAIN_STEPS} steps with init | peak {peak / 2**30:.2f} GiB | card: {card}")
+        for i, st in enumerate(split):
+            log(f"    step {i}: {st['step_ms']:.1f} ms = fwd+bwd {st['fwd_bwd_ms']:.1f} + "
+                f"optimizer {st['optimizer_ms']:.1f} (trackers {st['trackers_ms']:.1f}, refresh "
+                f"{st['refresh_ms']:.1f}, rest {st['rest_of_optimizer_ms']:.1f})")
+        log(f"    a step outside the loop: {waits} host waits {where or ''}; profiled step "
+            f"{step_wall:.1f} ms, device busy {busy:.1f} ms "
+            f"({100 * busy / step_wall:.1f} %)")
+        log("    its kernels by device ms: " + "; ".join(f"{k} {ms:.1f}" for ms, k in by_kernel[:8]))
+        gib = {k: v / 2**30 for k, v in memory.items()}
+        log(f"    memory of a step (GiB): params {gib['params']:.2f} + optimizer state "
+            f"{gib['optimizer_state']:.2f} held ({gib['held_before_step']:.2f} allocated); "
+            f"fwd+bwd peaks {gib['fwd_bwd_peak_over_held']:.2f} above that and leaves "
+            f"gradients of {gib['grads_held']:.2f}; the optimizer peaks "
+            f"{gib['optimizer_peak_over_held']:.2f} above its start and leaves "
+            f"{gib['optimizer_leaves']:.2f} more (the old and new state live at once until the "
+            f"step returns); step peak {gib['step_peak']:.2f}")
+        if not rank:
+            require(waits == 0, f"(t1) an AdamW step that neither logs nor saves waited for the "
+                                f"card {waits} times: {where}")
+    out["t1"] = t1
+    out["t1_params"] = n_params
+    out["t1_peak_diff_bytes"] = t1["adamw"]["peak_bytes"] - t1["spectral_adam"]["peak_bytes"]
+    # the optimizer state's bytes the ratio predicts: dense moments 2 floats a
+    # parameter, spectral-Adam's the dense ones over the ratio
+    dense_bytes = 8 * n_params
+    out["t1_moment_memory_ratio"] = ratio
+    out["t1_predicted_diff_bytes"] = dense_bytes - dense_bytes / ratio
+    log(f"  (t1) {n_params / 1e9:.4f} B parameters; moment_memory_ratio {ratio:.3f}: moments "
+        f"{dense_bytes / 2**30:.2f} GiB -> {dense_bytes / ratio / 2**30:.2f} GiB, predicted "
+        f"difference {out['t1_predicted_diff_bytes'] / 2**30:.2f} GiB; measured peak AdamW - "
+        f"spectral-Adam {out['t1_peak_diff_bytes'] / 2**30:.2f} GiB")
+
+    # -- (t2) the card against the CPU at the smoke config, planted faults -------
+    scfg = configs.get_smoke(TRAIN_ARCH)
+    sapi = build_model(scfg)
+    p0 = sapi.init(torch.Generator().manual_seed(1), device="cpu")
+    base_opt = OptimizerConfig(lr=TRAIN_T2["lr"], warmup_steps=0, total_steps=100,
+                               spectral_rank=TRAIN_T2["rank"])
+    s0 = {"adamw": AW.adamw_init(p0),
+          "spectral_adam": SA.spectral_adam_init(torch.Generator().manual_seed(2), p0,
+                                                 rank=TRAIN_T2["rank"], device="cpu")}
+
+    def t2_run(device, name, fault=None, api_=sapi):
+        params, state = _tree_to(p0, device), _tree_to(s0[name], device)
+        opt = dc.replace(base_opt, weight_decay=0.0) if fault == "weight decay dropped" \
+            else base_opt
+        losses = []
+        for step in range(TRAIN_T2["steps"]):
+            batch = batch_for_step(0, step, batch=2, seq=32, vocab=scfg.vocab_size, device=device)
+            if fault in (None, "weight decay dropped"):
+                params, state, loss, _ = loop.train_step(api_, opt, params, state, batch, step,
+                                                         spectral=name == "spectral_adam")
+            else:
+                loss, grads = loop.loss_and_grads(sapi, params, batch)
+                lr = warmup_cosine(step, base_lr=opt.lr, warmup_steps=opt.warmup_steps,
+                                   total_steps=opt.total_steps)
+                with torch.no_grad():
+                    if fault == "bias correction dropped":   # 1 - beta ** 1e6 == 1
+                        state = state._replace(step=torch.tensor(10**6, dtype=torch.int32))
+                        params, state, _ = AW.adamw_update(grads, state, params, lr=lr,
+                                                           grad_clip=opt.grad_clip)
+                    else:                                    # one tracker update skipped
+                        every = 10**9 if step == 2 else 1
+                        params, state = SA.spectral_adam_update(grads, state, params, lr=lr,
+                                                                update_basis_every=every)
+            losses.append(float(loss))
+        return torch.tensor(losses, dtype=torch.float64), params
+
+    t2 = {}
+    for name, faults in (("adamw", ("bias correction dropped", "weight decay dropped")),
+                         ("spectral_adam", ("one tracker update skipped",
+                                            "weight decay dropped"))):
+        cpu_l, cpu_p = t2_run("cpu", name)
+        card_l, card_p = t2_run(dev, name)
+        loss_err = float(((card_l - cpu_l).abs() / cpu_l.abs()).max())
+        param_err = _rel_max(card_p, cpu_p)
+        row = {"loss_rel": loss_err, "params_rel": param_err, "faults": {}}
+        log(f"  (t2) {name}: card vs CPU losses {loss_err:.2e} (limit {TRAIN_T2['loss']:g}), "
+            f"params {param_err:.2e} (limit {TRAIN_T2['params']:g}) | {card}")
+        require(loss_err <= TRAIN_T2["loss"] and param_err <= TRAIN_T2["params"],
+                f"(t2) {name}: the card differs from the CPU beyond the limits")
+        for fault in faults:
+            f_l, f_p = t2_run(dev, name, fault)
+            fl = float(((f_l - cpu_l).abs() / cpu_l.abs()).max())
+            fp = _rel_max(f_p, cpu_p)
+            row["faults"][fault] = {"loss_rel": fl, "params_rel": fp}
+            log(f"    planted fault, {fault}: losses {fl:.2e}, params {fp:.2e}")
+            require(fl > TRAIN_T2["loss"] or fp > TRAIN_T2["params"],
+                    f"(t2) {name}: the check passes a planted fault ({fault})")
+        t2[name] = row
+    # the same in bf16 compute: the card's bmm.dtype / mm.dtype path
+    bapi = build_model(scfg.replace(compute_dtype="bfloat16"))
+    batch0 = batch_for_step(0, 0, batch=2, seq=32, vocab=scfg.vocab_size, device="cpu")
+    cpu_loss, cpu_grads = loop.loss_and_grads(bapi, p0, batch0)
+    card_loss, card_grads = loop.loss_and_grads(bapi, _tree_to(p0, dev), _tree_to(batch0, dev))
+    first_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_err = _rel_max(card_grads, cpu_grads)
+    cpu_l, _ = t2_run("cpu", "adamw", api_=bapi)
+    card_l, _ = t2_run(dev, "adamw", api_=bapi)
+    losses_err = float(((card_l - cpu_l).abs() / cpu_l.abs()).max())
+    t2["adamw_bf16"] = {"first_loss_rel": first_err, "grads_rel": grad_err,
+                        "losses_rel": losses_err}
+    lim = TRAIN_T2_BF16
+    log(f"  (t2) bf16 compute: card vs CPU first loss {first_err:.2e} (limit {lim['loss']:g}), "
+        f"gradients {grad_err:.2e} (limit {lim['grads']:g}), AdamW losses over "
+        f"{TRAIN_T2['steps']} steps {losses_err:.2e} (limit {lim['losses']:g}) | {card}")
+    require(first_err <= lim["loss"] and grad_err <= lim["grads"] and losses_err <= lim["losses"],
+            "(t2) bf16 compute: the card differs from the CPU beyond the limits")
+    out["t2"] = t2
+
+    # -- (t3) resume on the card, to the bit ------------------------------------
+    torch.use_deterministic_algorithms(True)
+    try:
+        def smoke_run(d, steps, rank=0, every=3):
+            return RunConfig(model=scfg, optimizer=dc.replace(base_opt, spectral_rank=rank),
+                             steps=steps, log_every=1, checkpoint_every=every,
+                             checkpoint_dir=str(work / d), seed=0)
+
+        whole = loop.train(smoke_run("t3_whole", 6), batch_size=2, seq_len=32, device=dev)
+        loop.train(smoke_run("t3_resumed", 3), batch_size=2, seq_len=32, device=dev)
+        resumed = loop.train(smoke_run("t3_resumed", 6), batch_size=2, seq_len=32, device=dev)
+        require(resumed.resumed_from == 3, f"(t3) resumed from {resumed.resumed_from}, not 3")
+        same_losses = [v for _, v in whole.losses][3:] == [v for _, v in resumed.losses]
+        (sa, la), (sb, lb) = CK.restore(work / "t3_whole", None), CK.restore(work / "t3_resumed", None)
+        same_state = sa == sb == 6 and len(la) == len(lb) and all(
+            a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+            for a, b in zip(la, lb))
+        log(f"  (t3) resume at step 3 of 6 (AdamW, deterministic algorithms): losses "
+            f"{'equal' if same_losses else 'NOT equal'}, the {len(la)} leaves of the step-6 "
+            f"checkpoint {'equal to the bit' if same_state else 'NOT equal'} | {card}")
+        require(same_losses and same_state, "(t3) the resumed run is not the uninterrupted one")
+        loop.train(smoke_run("t3_spectral", 2, rank=TRAIN_T2["rank"], every=100),
+                   batch_size=2, seq_len=32, device=dev)
+        try:
+            loop.train(smoke_run("t3_spectral", 4, rank=TRAIN_T2["rank"], every=100),
+                       batch_size=2, seq_len=32, device=dev)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            refusal = None
+        log(f"  (t3) resuming spectral-Adam raises as the reference does: {refusal!r}")
+        require(refusal is not None and "leaves; target structure has" in refusal,
+                "(t3) resuming a spectral-Adam run did not raise the reference's ValueError")
+        out["t3"] = {"losses_equal": same_losses, "state_equal": same_state, "leaves": len(la),
+                     "spectral_refusal": refusal}
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # -- (t4) examples/train_lm.py's repro-tiny run --------------------------------
+    tiny = ModelConfig(name="repro-tiny", family="dense", n_layers=4, d_model=256, n_heads=8,
+                       n_kv_heads=4, d_ff=704, vocab_size=2_048, vocab_pad_to=64,
+                       mlp_type="swiglu", norm_type="rmsnorm", compute_dtype="float32",
+                       remat=False)
+    run = RunConfig(model=tiny, optimizer=OptimizerConfig(lr=1e-3, warmup_steps=20,
+                                                          total_steps=100),
+                    steps=TRAIN_T4["steps"], log_every=10, checkpoint_every=25,
+                    checkpoint_dir=str(work / "t4"), seed=0)
+    t0 = time.perf_counter()
+    res = loop.train(run, batch_size=TRAIN_T4["batch"], seq_len=TRAIN_T4["seq"], device=dev)
+    t4_s = time.perf_counter() - t0
+    first, last = res.losses[0][1], res.losses[-1][1]
+    log(f"  (t4) repro-tiny: loss {first:.3f} -> {last:.3f} over {res.final_step} steps "
+        f"({t4_s:.1f} s) | {card}")
+    require(last < first, f"(t4) the loss did not fall: {first} -> {last}")
+    out["t4"] = {"losses": res.losses, "seconds": t4_s}
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase (t): {out['seconds']:.1f} s | {card}")
+    return out
+
+
 def main() -> int:
+    # phase (t3) runs with deterministic algorithms, and cuBLAS reads this
+    # before the card's first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -691,6 +1205,12 @@ def main() -> int:
     for f in sorted(out_dir.glob("*.log")):
         regs = [ln.strip() for ln in f.read_text().splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {f.stem}: " + " | ".join(regs[-2:]))
+
+    # -- phase (t), the training path: first, while the card's memory is
+    # empty (granite-34b's 2 layers peak at ~50 GiB; the later phases' states
+    # would not leave room for it) ---------------------------------------------
+    log("phase (t): training")
+    log("train " + json.dumps(train_phase(dev, card)))
 
     rng = np.random.default_rng(0)
 
@@ -1147,24 +1667,6 @@ def main() -> int:
         del err32
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         return {"inputs": inp, "ids": ids, "ids3": ids3, "svc3": svc3}
-
-    def count_syncs(fn):
-        """Host waits for the device while ``fn`` runs, as
-        ``torch.cuda.set_sync_debug_mode`` reports them: (count, {file:line: count})."""
-        import collections
-
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        where = collections.Counter("/".join(Path(w.filename).parts[-2:]) + f":{w.lineno}"
-                                    for w in caught
-                                    if "called a synchronizing CUDA operation" in str(w.message))
-        return sum(where.values()), dict(where)
 
     def service_times(ctx):
         """Phase 4's service rows: per route and dtype at (s1) the ms of a flush

@@ -21,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["SvdState", "as_state", "like_container", "resolve_device"]
+__all__ = ["SvdState", "as_state", "generator_device", "like_container", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -31,6 +31,17 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             f"device {device!r} requested but no CUDA card is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev
+
+
+def generator_device(gen: torch.Generator, device) -> torch.device:
+    """``device`` resolved as ``resolve_device`` does, for an init that draws
+    from ``gen``: raises when ``gen`` draws on another device."""
+    dev = resolve_device(device)
+    gd = gen.device
+    if gd.type != dev.type or (dev.index is not None and gd.index not in (None, dev.index)):
+        raise ValueError(f"the generator draws on {gd} but device={device!r}; build it there "
+                         f"(torch.Generator(device={str(dev)!r})) or pass device={str(gd)!r}")
     return dev
 
 

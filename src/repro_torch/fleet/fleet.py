@@ -44,6 +44,7 @@ from repro_torch.dist.merge import merge_tree
 from repro_torch.fleet.placement import PlacementSpec, plan_devices, shard_of
 from repro_torch.fleet.shard import FleetShard
 from repro_torch.serve.svd_service import ServiceSnapshot, SvdService, SvdServiceStats
+from repro_torch import _tree
 from repro_torch.train import checkpoint as _checkpoint
 
 __all__ = ["FLEET_SNAPSHOT_VERSION", "FleetSnapshot", "SvdFleet"]
@@ -91,11 +92,11 @@ class FleetSnapshot:
 
     def leaves(self) -> list:
         """The snapshot's leaves in the reference's pytree order."""
-        return _checkpoint.tree_leaves(self)
+        return _tree.tree_leaves(self)
 
     @classmethod
     def from_leaves(cls, leaves, aux: dict) -> "FleetSnapshot":
-        return _checkpoint.tree_unflatten(cls.skeleton(aux), list(leaves))
+        return _tree.tree_unflatten(cls.skeleton(aux), list(leaves))
 
     def save(self, ckpt_dir, step: int, *, keep: int = 3):
         return _checkpoint.save(ckpt_dir, step, self, keep=keep, aux=self.aux())

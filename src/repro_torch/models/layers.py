@@ -1,0 +1,226 @@
+"""Shared model building blocks (functions over explicit parameter dicts), in
+PyTorch.
+
+Counterpart of ``repro.models.layers``.  ``dot`` is the reference's matmul in
+the compute dtype with float32 accumulation and output
+(``preferred_element_type``): on a card it multiplies compute-dtype operands
+with float32 output (``aten::mm.dtype``); on the CPU, where that overload is
+not registered, it upcasts the compute-dtype operands to float32, which gives
+the same products (a bf16 x bf16 product is exact in float32).  Its backward
+is the reference's transpose rule: the float32 cotangent times the
+compute-dtype operand, accumulated in float32 and rounded to the compute
+dtype.  A float32 compute dtype is a plain float32 matmul; TF32 stays off
+(``torch.backends.cuda.matmul.allow_tf32`` is False by default and nothing
+here sets it).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "dot",
+    "bdot",
+    "rmsnorm",
+    "layernorm",
+    "norm_apply",
+    "norm_init",
+    "mlp_init",
+    "mlp_apply",
+    "rope_freqs",
+    "rope_apply",
+    "embed_init",
+    "embed_lookup",
+    "unembed",
+    "cross_entropy",
+    "uniform_init",
+    "as_dtype",
+]
+
+
+def as_dtype(name) -> torch.dtype:
+    """A config's dtype name (``"bfloat16"``) as a ``torch.dtype``."""
+    if isinstance(name, torch.dtype):
+        return name
+    return getattr(torch, str(name))
+
+
+def uniform_init(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
+    """Uniform in ``[-scale, scale)`` on the generator's device."""
+    x = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * (2 * scale) - scale).to(as_dtype(dtype))
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D or 3-D) of compute-dtype operands with float32
+    accumulation and output."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        op = torch.mm if a.dim() == 2 else torch.bmm
+        return op(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class _DotF32(torch.autograd.Function):
+    """Compute-dtype product with float32 output and the reference's backward
+    (float32 cotangent x compute-dtype operand, rounded to the compute dtype,
+    then to each input's dtype)."""
+
+    @staticmethod
+    def forward(ctx, a, b, cd):
+        ac, bc = a.to(cd), b.to(cd)
+        ctx.save_for_backward(ac, bc)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return _mm_f32(ac, bc)
+
+    @staticmethod
+    def backward(ctx, g):
+        ac, bc = ctx.saved_tensors
+        da, db = ctx.dtypes
+        g = g.float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, bc.float().mT).to(ac.dtype).to(da)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(ac.float().mT, g).to(bc.dtype).to(db)
+        return ga, gb, None
+
+
+def _dot2(a: torch.Tensor, b: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    if cd == torch.float32:
+        return _mm_f32(a.float(), b.float())
+    return _DotF32.apply(a, b, cd)
+
+
+def dot(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x @ w`` in the compute dtype with float32 accumulation (the
+    reference's MXU convention): ``x`` (..., k), ``w`` (k, n) -> float32
+    (..., n).  The leading axes fold into one 2-D product."""
+    cd = as_dtype(compute_dtype)
+    lead = x.shape[:-1]
+    out = _dot2(x.reshape(-1, x.shape[-1]), w, cd)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def bdot(a: torch.Tensor, b: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Batched ``a @ b`` ((B, m, k) x (B, k, n)) in the compute dtype with
+    float32 accumulation and output (the attention einsums)."""
+    return _dot2(a, b, as_dtype(compute_dtype))
+
+
+def rmsnorm(x, w, eps=1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * w.float()
+    return out.to(x.dtype)
+
+
+def layernorm(x, w, b, eps=1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()
+    return out.to(x.dtype)
+
+
+def norm_init(d, norm_type, dtype, device):
+    dt = as_dtype(dtype)
+    if norm_type == "rmsnorm":
+        return {"w": torch.ones((d,), dtype=dt, device=device)}
+    return {"w": torch.ones((d,), dtype=dt, device=device),
+            "b": torch.zeros((d,), dtype=dt, device=device)}
+
+
+def norm_apply(x, p, norm_type):
+    if norm_type == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen, d_model, d_ff, mlp_type, dtype, lead=()):
+    """MLP weights; ``lead`` prepends axes (the decoder's stacked layers)."""
+    lead = tuple(lead)
+    scale_in = (1.0 / d_model) ** 0.5
+    scale_out = (1.0 / d_ff) ** 0.5
+    if mlp_type == "swiglu":
+        return {
+            "wg": uniform_init(gen, lead + (d_model, d_ff), scale_in, dtype),
+            "wu": uniform_init(gen, lead + (d_model, d_ff), scale_in, dtype),
+            "wd": uniform_init(gen, lead + (d_ff, d_model), scale_out, dtype),
+        }
+    return {
+        "wi": uniform_init(gen, lead + (d_model, d_ff), scale_in, dtype),
+        "wd": uniform_init(gen, lead + (d_ff, d_model), scale_out, dtype),
+    }
+
+
+def mlp_apply(x, p, mlp_type, compute_dtype):
+    if mlp_type == "swiglu":
+        g = dot(x, p["wg"], compute_dtype)
+        u = dot(x, p["wu"], compute_dtype)
+        h = F.silu(g) * u
+        return dot(h.to(x.dtype), p["wd"], compute_dtype).to(x.dtype)
+    h = dot(x, p["wi"], compute_dtype)
+    if mlp_type == "relu2":  # nemotron squared-ReLU
+        h = torch.square(F.relu(h))
+    else:  # gelu: jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(h, approximate="tanh")
+    return dot(h.to(x.dtype), p["wd"], compute_dtype).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim, theta, device=None):
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(float(theta), exps)  # (half,)
+
+
+def rope_apply(x, positions, theta):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int32."""
+    half = x.shape[-1] // 2
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions[..., :, None].float() * inv[None, :]  # (..., seq, half)
+    sin = torch.sin(ang)[..., :, None, :]
+    cos = torch.cos(ang)[..., :, None, :]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_init(gen, padded_vocab, d_model, dtype):
+    return {"table": uniform_init(gen, (padded_vocab, d_model), d_model ** -0.5, dtype)}
+
+
+def embed_lookup(tokens, p):
+    return F.embedding(tokens.long(), p["table"])
+
+
+def unembed(x, p, compute_dtype):
+    """Logits = x @ table^T (tied); returns f32 logits."""
+    return dot(x, p["table"].mT, compute_dtype)
+
+
+def cross_entropy(logits, labels, vocab_size):
+    """Mean token NLL; ignores padded vocab tail via label validity."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    return torch.mean(nll)

@@ -79,6 +79,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.svd_update import TruncatedSvd
 from repro_torch.dist.merge import merge_tree
+from repro_torch import _tree
 from repro_torch.train import checkpoint as _checkpoint
 from repro_torch.updates import ops as _ops
 from repro_torch.updates import planner as _planner
@@ -300,13 +301,13 @@ class ServiceSnapshot:
 
     def leaves(self) -> list:
         """The snapshot's leaves in the reference's pytree order."""
-        return _checkpoint.tree_leaves(self)
+        return _tree.tree_leaves(self)
 
     @classmethod
     def from_leaves(cls, leaves, aux: dict) -> "ServiceSnapshot":
         """The snapshot an aux spec describes, with ``leaves`` (in the
         reference's order) as its data."""
-        return _checkpoint.tree_unflatten(cls.skeleton(aux), list(leaves))
+        return _tree.tree_unflatten(cls.skeleton(aux), list(leaves))
 
     def save(self, ckpt_dir, step: int, *, keep: int = 3):
         """Persist through ``train.checkpoint`` (atomic + checksummed)."""

@@ -1,2 +1,3 @@
-"""Training-side pieces of the port: the checkpoint layer (``train.checkpoint``) and
-the elastic planners (``train.elastic``)."""
+"""Training side of the port: the train loop (``train.loop.train``), the
+checkpoint layer (``train.checkpoint``) and the elastic planners
+(``train.elastic``)."""

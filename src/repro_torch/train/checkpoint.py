@@ -18,19 +18,14 @@ Guarantees:
   host, dtype kept: int32 stays int32) and a structure-free restore
   (``tree_like=None``) hands them back uncast.
 
-Trees are flattened as the reference's pytrees flatten: ``None`` holds no
-leaf; a dict's entries go in key order (``['key']``); a tuple's or list's in
-position (``[i]``); a dataclass's or named tuple's fields in declaration
-order (``.field``), a dataclass listing only the fields named by its
-``tree_fields`` attribute when it has one; anything else is a leaf.
+Trees are flattened in the reference's pytree order (``repro_torch._tree``).
 A caller that cannot know its structure before restore (``serve.SvdService``)
 saves a JSON ``aux`` spec beside the arrays and rebuilds the structure from
-it (``load_aux`` + ``restore(dir, None)`` + ``tree_unflatten``).
+it (``load_aux`` + ``restore(dir, None)`` + ``_tree.tree_unflatten``).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import os
@@ -41,26 +36,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["available_steps", "latest_step", "load_aux", "restore", "save",
-           "tree_flatten_with_names", "tree_leaves", "tree_unflatten"]
+from repro_torch._tree import tree_flatten_with_names, tree_leaves, tree_unflatten
 
-
-def _children(node):
-    """``[(path suffix, child), ...]`` of an inner node, or None for a leaf."""
-    if node is None:
-        return []
-    if isinstance(node, dict):
-        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return [(f".{f}", getattr(node, f)) for f in node._fields]
-    if isinstance(node, (tuple, list)):
-        return [(f"[{i}]", x) for i, x in enumerate(node)]
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        names = getattr(node, "tree_fields", None)
-        if names is None:
-            names = [f.name for f in dataclasses.fields(node)]
-        return [(f".{f}", getattr(node, f)) for f in names]
-    return None
+__all__ = ["available_steps", "latest_step", "load_aux", "restore", "save"]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -70,52 +48,6 @@ def _to_numpy(leaf) -> np.ndarray:
             raise TypeError("bfloat16 leaves have no numpy dtype; cast the state before saving")
         return leaf.numpy()
     return np.asarray(leaf)
-
-
-def tree_flatten_with_names(tree) -> tuple[list[str], list]:
-    """``(names, leaves)`` of ``tree`` in flattening order (leaves as given)."""
-    names, leaves = [], []
-
-    def walk(node, path):
-        kids = _children(node)
-        if kids is None:
-            names.append(path)
-            leaves.append(node)
-            return
-        for suffix, child in kids:
-            walk(child, path + suffix)
-
-    walk(tree, "")
-    return names, leaves
-
-
-def tree_leaves(tree) -> list:
-    return tree_flatten_with_names(tree)[1]
-
-
-def tree_unflatten(skeleton, leaves):
-    """``skeleton``'s structure with its leaves replaced, in order, by
-    ``leaves``."""
-    it = iter(leaves)
-
-    def build(node):
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return node._replace(**{f: build(getattr(node, f)) for f in node._fields})
-        if isinstance(node, (tuple, list)):
-            return type(node)(build(x) for x in node)
-        return dataclasses.replace(node, **{s[1:]: build(c) for s, c in kids})
-
-    out = build(skeleton)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the structure holds")
-    return out
 
 
 def save(ckpt_dir: str | Path, step: int, tree, *, keep: int = 3, aux=None) -> Path:
@@ -229,7 +161,8 @@ def restore(ckpt_dir: str | Path, tree_like=None, step: int | None = None):
     """Load a checkpoint; returns ``(step, tree)``.
 
     With ``tree_like`` the leaves are unflattened into its structure (each
-    cast to its target leaf's dtype when that leaf has one).  With
+    cast to its target leaf's dtype when that leaf has one; a tensor leaf
+    also lands on its target's device).  With
     ``tree_like=None`` the raw numpy leaves come back as a flat list in saved
     order, **uncast and bitwise-exact**.
     """
@@ -254,7 +187,7 @@ def restore(ckpt_dir: str | Path, tree_like=None, step: int | None = None):
     restored = []
     for leaf, like in zip(leaves, flat_like):
         if isinstance(like, torch.Tensor):
-            restored.append(torch.as_tensor(leaf).to(like.dtype))
+            restored.append(torch.as_tensor(leaf).to(device=like.device, dtype=like.dtype))
         elif hasattr(like, "dtype"):
             restored.append(np.asarray(leaf).astype(like.dtype))
         else:

@@ -957,3 +957,163 @@ def test_fleet_settle_and_drain_across_shard_counts(cuda_device):
     for continuous in (True, False):
         for x, y in zip(out[(1, continuous)], out[(4, continuous)]):
             assert all(torch.equal(getattr(x, f), getattr(y, f)) for f in "usv")
+
+
+# -- the training path (train.loop): no kernel of its own; the card against
+# the port's own CPU path.  One f32 step differs by summation order; Adam's
+# update is nearly each gradient entry's sign, so an entry rounded to the other
+# sign moves its parameter by 2 lr (chip_smoke.py TRAIN_T2 has the readings).
+TRAIN_LOSS_REL = 1e-5
+TRAIN_PARAMS_REL = 1e-2
+
+
+def _train_rel(got, want) -> float:
+    from repro_torch._tree import tree_leaves
+
+    return max(float((a.detach().cpu().double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_leaves(got), tree_leaves(want))
+               if isinstance(a, torch.Tensor) and a.is_floating_point())
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_dot_on_the_card_matches_its_cpu_form(cuda_device, cd):
+    """``layers.dot`` on the card (bf16 operands with float32 output through
+    ``mm.dtype``) against its CPU form (the operands upcast to float32):
+    bf16 products are exact in float32, so only the summation order differs
+    (1e-5 of the largest output); the gradients are rounded to bf16, one bf16
+    ulp (2**-8 relative) apart at most."""
+    from repro_torch.models.layers import dot
+
+    rng = np.random.default_rng(5)
+    x, w, gy = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+                for s in ((4, 9, 256), (256, 96), (4, 9, 96)))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xt = x.to(dev).requires_grad_(True)
+        wt = w.to(dev).requires_grad_(True)
+        y = dot(xt, wt, cd)
+        assert y.dtype == torch.float32
+        outs.append((y, *torch.autograd.grad(y, (xt, wt), gy.to(dev))))
+    tol = (1e-5, 1e-5 if cd == "float32" else 2.0 ** -8)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())  # noqa: E731
+    assert rel(outs[1][0], outs[0][0]) < tol[0]
+    assert rel(outs[1][1], outs[0][1]) < tol[1] and rel(outs[1][2], outs[0][2]) < tol[1]
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_bdot_on_the_card_matches_its_cpu_form(cuda_device, cd):
+    """``layers.bdot``, attention's 3-D products (``bmm.dtype`` on the card),
+    and its gradients, against its CPU form, at the limits of the 2-D test."""
+    from repro_torch.models.layers import bdot
+
+    rng = np.random.default_rng(6)
+    a, b, gy = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+                for s in ((6, 40, 128), (6, 128, 72), (6, 40, 72)))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        at = a.to(dev).requires_grad_(True)
+        bt = b.to(dev).requires_grad_(True)
+        y = bdot(at, bt, cd)
+        assert y.dtype == torch.float32 and y.shape == (6, 40, 72)
+        outs.append((y.detach(), *torch.autograd.grad(y, (at, bt), gy.to(dev))))
+    tol = (1e-5, 1e-5 if cd == "float32" else 2.0 ** -8)
+    rel = lambda x, w: float((x.cpu() - w).abs().max() / w.abs().max())  # noqa: E731
+    assert rel(outs[1][0], outs[0][0]) < tol[0]
+    assert rel(outs[1][1], outs[0][1]) < tol[1] and rel(outs[1][2], outs[0][2]) < tol[1]
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, spectral):
+    from repro_torch import configs
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.spectral_adam import spectral_adam_init
+    from repro_torch.train import loop
+
+    sapi = build_model(configs.get_smoke("granite-34b"))
+    opt = OptimizerConfig(lr=1e-2, warmup_steps=0, total_steps=100, spectral_rank=8)
+    p0 = sapi.init(torch.Generator().manual_seed(1), device="cpu")
+    s0 = (spectral_adam_init(torch.Generator().manual_seed(2), p0, rank=8, device="cpu") if spectral
+          else adamw_init(p0))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        params = _to(p0, dev)
+        state = _to(s0, dev)
+        losses = []
+        for step in range(2):
+            batch = batch_for_step(0, step, batch=2, seq=32, vocab=512, device=dev)
+            params, state, loss, _ = loop.train_step(sapi, opt, params, state, batch, step,
+                                                     spectral=spectral)
+            losses.append(float(loss))
+        runs.append((losses, params))
+    (cl, cp), (gl, gp) = runs
+    assert max(abs(a - b) / abs(b) for a, b in zip(gl, cl)) < TRAIN_LOSS_REL
+    assert _train_rel(gp, cp) < TRAIN_PARAMS_REL
+    assert all(x.is_cuda for x in _leaves_of(gp))
+
+
+def test_bf16_loss_and_grads_on_the_card_match_the_cpu(cuda_device):
+    """granite-34b's smoke config in bf16 compute, the dtype the full-width
+    config runs: one forward and backward from one init on the card and on
+    the CPU.  A bf16 rounding taken to the other neighbour moves what follows
+    by a bf16 ulp: the loss at 1e-4, the gradients at two bf16 ulps of each
+    leaf's largest entry (2**-6; chip_smoke.py TRAIN_T2_BF16 has the
+    readings)."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import loop
+
+    api = build_model(configs.get_smoke("granite-34b").replace(compute_dtype="bfloat16"))
+    p0 = api.init(torch.Generator().manual_seed(1), device="cpu")
+    batch = batch_for_step(0, 0, batch=2, seq=32, vocab=512, device="cpu")
+    cpu_loss, cpu_grads = loop.loss_and_grads(api, p0, batch)
+    card_loss, card_grads = loop.loss_and_grads(api, _to(p0, cuda_device), _to(batch, cuda_device))
+    assert abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss)) < 1e-4
+    assert _train_rel(card_grads, cpu_grads) < 2.0 ** -6
+    assert all(x.is_cuda for x in _leaves_of(card_grads))
+
+
+def _leaves_of(tree):
+    from repro_torch._tree import tree_leaves
+
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _to(tree, dev):
+    from repro_torch._tree import tree_leaves, tree_unflatten
+
+    return tree_unflatten(tree, [x if x.dim() == 0 and x.dtype == torch.int32 else x.to(dev)
+                                 for x in tree_leaves(tree)])
+
+
+def test_train_resume_on_the_card_is_exact(cuda_device, tmp_path, monkeypatch):
+    """Saved at step 2 and resumed to 4 under deterministic algorithms: the
+    same losses and the same checkpoint bits as the uninterrupted run."""
+    from repro_torch import configs
+    from repro_torch.configs.base import OptimizerConfig, RunConfig
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import loop
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run(d, steps):
+            return RunConfig(model=configs.get_smoke("granite-34b"),
+                             optimizer=OptimizerConfig(lr=1e-2, warmup_steps=0, total_steps=100),
+                             steps=steps, log_every=1, checkpoint_every=2,
+                             checkpoint_dir=str(tmp_path / d))
+
+        whole = loop.train(run("whole", 4), batch_size=2, seq_len=32)
+        loop.train(run("resumed", 2), batch_size=2, seq_len=32)
+        resumed = loop.train(run("resumed", 4), batch_size=2, seq_len=32)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert resumed.resumed_from == 2
+    assert [v for _, v in whole.losses][2:] == [v for _, v in resumed.losses]
+    (sa, la), (sb, lb) = ck.restore(tmp_path / "whole", None), ck.restore(tmp_path / "resumed", None)
+    assert sa == sb == 4
+    assert all(a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(la, lb))

@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from _torch_helpers import ref
-from repro_torch import api, convert, obs
+from repro_torch import _tree, api, convert, obs
 from repro_torch.dist import make_host_mesh
 from repro_torch.fleet import (
     FLEET_SNAPSHOT_VERSION,
@@ -407,8 +407,8 @@ def test_regrouped_four_two_four_is_bitwise_and_matches_reference():
         assert set(s_back.stream_ids) == set(s_orig.stream_ids)
         order = [s_back.stream_ids.index(sid) for sid in s_orig.stream_ids]
         for field in ("states", "pending_a", "pending_b"):
-            _leaves_equal(ckpt.tree_leaves([getattr(s_back, field)[i] for i in order]),
-                          ckpt.tree_leaves(list(getattr(s_orig, field))))
+            _leaves_equal(_tree.tree_leaves([getattr(s_back, field)[i] for i in order]),
+                          _tree.tree_leaves(list(getattr(s_orig, field))))
 
 
 def test_regrouped_same_count_is_identity_and_auto_plans_devices(tmp_path):
