@@ -101,6 +101,26 @@ result) when it fails:
    uninterrupted one to the bit under deterministic algorithms, and a
    spectral-Adam resume raising the reference's ``ValueError``; (t4)
    ``examples/train_lm.py``'s repro-tiny run, 60 steps: the loss falls.
+(g) token serving, ``serve.engine.generate`` over ``ModelApi.prefill`` /
+   ``decode_step`` (no kernel of its own; ``SERVE*``; run after (t)): (g1)
+   deepseek-v2-lite-16b (MLA + MoE) at full width, 8 of its 27 layers; (g2)
+   zamba2-7b (the Mamba2 hybrid) at full width and depth; (g3) qwen1.5-32b
+   (dense MHA, QKV bias), 2 of 64 layers; each greedy on b 8 prompts of 1024
+   tokens, 32 new: two runs equal to the bit under deterministic algorithms,
+   tokens in the vocabulary, 0 host waits a decode step (a check); prefill
+   ms, ms a decode token, tokens/s, the device's busy share of a step
+   (profiler) and its kernels by kind, peak memory, the cache's GiB, the
+   time of one cast of the matrix parameters to bf16; the prefill's last
+   logits and three teacher-forced decode steps against the forward over
+   1152 tokens in f32 compute (the MoE router dropless), with planted faults
+   rejected (the cache written at pos - 1, the decode mask < pos, MLA's
+   k_rope cached before RoPE; the hybrid's conv buffer not shifted, its
+   decay dropped); decode_32k rows (seq 32768, b 8) on zero caches from the
+   decode specs (bf16; (g3) also int8); (g3) int8 ``generate`` raising the
+   reference's TypeError and 64 tokens decoded from zero int8 and bf16
+   caches agreeing at the 65th; (g4) the card against the port on the CPU at
+   five smoke configs (tokens greedy and sampled, logits, a planted fault)
+   and the threefry bits equal.
 
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
@@ -386,6 +406,47 @@ TRAIN_T2_BF16 = {"loss": 1e-4, "grads": 2.0 ** -6, "losses": 1e-3}
 # (t4) examples/train_lm.py's default run (repro-tiny, batch 8, seq 128,
 # lr 1e-3, warmup 20), 60 steps of AdamW: the loss must fall
 TRAIN_T4 = {"steps": 60, "batch": 8, "seq": 128}
+
+# phase (g), token serving (serve.engine.generate over ModelApi.prefill /
+# decode_step; no kernel of A-F on the path), each model built at its
+# published widths (src/repro_torch/configs/*), f32 parameters, bf16 compute:
+# (g1) deepseek-v2-lite-16b (MLA r512 rope64 nope128 v128, MoE 64 routed + 2
+# shared top-6, d_ff_expert 1408, vocab 102400), its 27 layers cut to 8 by
+# the phase's memory and time (~5.1 B parameters); (g2) zamba2-7b (81 Mamba2
+# layers, d 3584, d_state 64, 112 SSM heads, the shared block every 6) at
+# full depth (~6.75 B); (g3) qwen1.5-32b (dense MHA with QKV bias, d 5120, 40
+# heads, d_ff 27392, vocab 152064), 64 layers cut to 2 (~2.6 B).  generate
+# greedy on b 8 prompts of 1024 tokens, 32 new tokens (max_len 1056); the
+# decode_32k rows at SHAPES["decode_32k"]'s sequence, its batch 128 cut to 8
+SERVE = {"g1": ("deepseek-v2-lite-16b", 8), "g2": ("zamba2-7b", None),
+         "g3": ("qwen1.5-32b", 2), "batch": 8, "prompt": 1024, "new": 32, "extra": 128,
+         "long": 32768, "timed_steps": 8, "int8_steps": 64}
+# consistency: the prefill's last logits and three teacher-forced decode
+# steps (positions prompt .. prompt + 2) against the full forward over the
+# prompt + 128 tokens on the card, max |delta logits| / max |logits| at each
+# position, the worst.  Run in float32 compute (TF32 off): in bf16 one
+# rounding that the two paths take to other neighbours moves the logits by
+# ~1e-2, above what one cache entry or one masked key moves them at 1024
+# keys (attention near uniform at a random init).  The MoE router dropless,
+# as the reference's own test makes it (capacity_factor = n_routed / top_k).
+# Limit above the readings, below each planted fault (PERF.md):
+SERVE_CONSIST = 1e-4
+# (g3) int8 against bf16 caches after 64 tokens decoded from zero caches:
+# the reference's own limit (tests/test_models.py:221-224) and equal argmax
+SERVE_INT8 = 0.05
+# (g4) the card against the port on the CPU at the smoke configs, f32
+# compute, TF32 off: the prefill's and 3 decode steps' logits, relative to
+# the largest logit (two devices summing in other orders), and the tokens
+# equal; a planted fault (the cache written at pos - 1) must exceed it
+SERVE_G4_ARCHS = ("granite-34b", "qwen2-72b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
+                  "zamba2-7b")
+SERVE_G4_TOL = 1e-5
+# a decode step's kernels by kind, from the profiler's kernel names (the
+# first kind whose words a name holds): cuBLAS's Hopper products are "nvjet"
+# kernels
+SERVE_KERNEL_KINDS = (("products", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
+                      ("copies and casts", ("copy", "convert")),
+                      ("softmax and reductions", ("softmax", "reduce")))
 
 # one world at a time, in this order: NCCL can take one rank a card, gloo
 # stages CUDA tensors through the host
@@ -1163,6 +1224,456 @@ def train_phase(dev, card: str) -> dict:
     return out
 
 
+def _serve_prompts(cfg, b, s, seed, dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev, dtype=torch.int32)
+
+
+def _logit_rel(got, want) -> float:
+    """max |got - want| / max |want| over the real vocabulary."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+class _Plant:
+    """A planted fault: ``setattr`` patches on the port's modules for a
+    ``with`` block."""
+
+    def __init__(self, patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, fn in self.patches:
+            setattr(m, n, fn(getattr(m, n)))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def _serve_faults(kind):
+    """The planted faults of a consistency drive, by name: each a list of
+    (module, attribute, wrapper of the original)."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla as M
+    from repro_torch.models import ssm as S
+
+    def write_at_pos_minus_1(orig):
+        return lambda buf, new, pos: orig(buf, new, pos - 1)
+
+    def mask_lt_pos(orig):
+        return lambda sk, pos, device: torch.arange(sk, device=device) < pos
+
+    def k_rope_before_rope(orig):
+        def project(x, p, cfg, positions):
+            q_nope, q_rope, c_kv, _ = orig(x, p, cfg, positions)
+            raw = L.dot(x, p["w_dkv"], cfg.compute_dtype).to(x.dtype)[..., cfg.mla.kv_lora_rank:]
+            return q_nope, q_rope, c_kv, raw
+        return project
+
+    def conv_not_shifted(orig):
+        def decode(x, p, cfg, state):
+            old = state["conv"].clone()
+            out = orig(x, p, cfg, state)
+            state["conv"].copy_(old)
+            return out
+        return decode
+
+    def decay_dropped(orig):
+        def decode(x, p, cfg, state):
+            return orig(x, dict(p, a_log=torch.full_like(p["a_log"], -torch.inf)), cfg, state)
+        return decode
+
+    faults = {"the cache written at pos - 1": [(A, "_write", write_at_pos_minus_1)],
+              "the decode mask < pos": [(A, "_decode_valid", mask_lt_pos)]}
+    if kind == "mla":
+        faults["k_rope cached before RoPE"] = [(M, "_project", k_rope_before_rope)]
+    if kind == "hybrid":
+        faults = {"the conv buffer not shifted": [(S, "ssm_decode", conv_not_shifted)],
+                  "the SSM state's decay dropped": [(S, "ssm_decode", decay_dropped)]}
+    return faults
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch._tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _greedy(api, params, box, pos):
+    """One greedy decode step as ``generate`` takes it: the cache written in
+    place, the argmax kept on the device."""
+    from repro_torch.serve.engine import _sample
+
+    logits, box["cache"] = api.decode_step(params, box["cache"], box["token"], pos)
+    box["token"] = _sample(logits[:, -1, :], 0.0, None)[:, None]
+    box["out"].append(box["token"])
+
+
+def _decode_profile(api, params, box, pos0, steps, sync):
+    """ms a decode step (CUDA events over ``steps`` steps), the device's busy
+    share of one step (profiler) and its kernels by category, host waits a
+    step (``set_sync_debug_mode``)."""
+    import torch
+
+    waits, where = count_syncs(lambda: _greedy(api, params, box, pos0))
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(steps):
+        _greedy(api, params, box, pos0 + 1 + i)
+    e1.record()
+    sync()
+    ms = e0.elapsed_time(e1) / steps
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _greedy(api, params, box, pos0 + 1 + steps)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    cats, kernels = {}, []
+    for ev in prof.key_averages():
+        if ev.device_time_total <= 0:
+            continue
+        k = ev.key.lower()
+        cat = next((c for c, words in SERVE_KERNEL_KINDS if any(w in k for w in words)),
+                   "other elementwise")
+        cats[cat] = cats.get(cat, 0.0) + ev.device_time_total / 1e3
+        kernels.append((ev.device_time_total / 1e3, ev.count, ev.key[:90]))
+    busy = sum(cats.values())
+    return {"ms_a_token": ms, "profiled_step_ms": wall, "device_busy_ms": busy,
+            "device_share": busy / wall if wall > 0 else None,
+            "device_ms_by_kind": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+            "top_kernels": sorted(kernels, reverse=True)[:8],
+            "host_waits_a_step": waits, "waits_at": where}
+
+
+def _param_cast_ms(params, cd, sync):
+    """ms of casting every matrix parameter but the embedding table (which a
+    step gathers from, uncast) to the compute dtype once, as a decode step's
+    products do (CUDA events, median of 3)."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+
+    leaves = [x for x in tree_leaves({k: v for k, v in params.items() if k != "embed"})
+              if x.dim() >= 2]
+    times = []
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for x in leaves:
+            x.to(cd)
+        e1.record()
+        sync()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), sum(x.numel() for x in leaves)
+
+
+def _consistency(api_f32, params, prompts, extra_toks, fwd, faults, prompt_len):
+    """The prefill's last logits and 3 teacher-forced decode steps against the
+    full forward (float32 compute); then each planted fault's reading."""
+    import torch
+
+    seq = torch.cat([prompts, extra_toks], dim=1)
+    with torch.inference_mode():
+        full = fwd(params, {"tokens": seq}, api_f32.cfg)
+        want = [full[:, prompt_len - 1 + i] for i in range(4)]
+        del full
+
+        def drive():
+            logits, cache = api_f32.prefill(params, {"tokens": prompts}, max_len=seq.shape[1])
+            got = [logits[:, -1]]
+            for i in range(3):
+                logits, cache = api_f32.decode_step(
+                    params, cache, seq[:, prompt_len + i:prompt_len + i + 1], prompt_len + i)
+                got.append(logits[:, 0])
+            vocab = api_f32.cfg.vocab_size
+            return max(_logit_rel(g[:, :vocab], w[:, :vocab]) for g, w in zip(got, want))
+
+        sound = drive()
+        planted = {}
+        for name, patches in faults.items():
+            with _Plant(patches):
+                planted[name] = drive()
+    return sound, planted
+
+
+def serve_phase(dev, card: str, sizes=None) -> dict:
+    """Phase (g): token serving on the card (``serve.engine.generate``).
+    (g1) deepseek-v2-lite-16b, (g2) zamba2-7b, (g3) qwen1.5-32b at their
+    published widths: generate greedy, determinism, host waits, consistency
+    with planted faults, times; (g3) the int8 cache; the decode_32k rows;
+    (g4) the card against the CPU at the smoke configs.  Raises on any failed
+    check."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import engine as ENG
+
+    sz = dict(SERVE, **(sizes or {}))
+    b, plen, new, extra = sz["batch"], sz["prompt"], sz["new"], sz["extra"]
+    sync = torch.cuda.synchronize
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    def fresh():
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    for label in ("g1", "g2", "g3"):
+        arch, layers = sz[label]
+        cfg = configs.get(arch) if "cfg_" + label not in sz else sz["cfg_" + label]
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        row = {"arch": arch, "n_layers": cfg.n_layers, "compute": cfg.compute_dtype}
+        fresh()
+        t0 = time.perf_counter()
+        api = build_model(cfg)
+        params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        sync()
+        row["params"] = sum(x.numel() for x in tree_leaves(params))
+        row["init_s"] = time.perf_counter() - t0
+        prompts = _serve_prompts(cfg, b, plen, 1, dev)
+        sc = ENG.ServeConfig(max_new_tokens=new)
+
+        # generate, twice, under deterministic algorithms: equal to the bit
+        torch.use_deterministic_algorithms(True)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            toks1 = ENG.generate(api, params, prompts, sc)
+            sync()
+            row["generate_s"] = time.perf_counter() - t0
+            row["generate_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            toks2 = ENG.generate(api, params, prompts, sc)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        require(torch.equal(toks1, toks2), f"({label}) two greedy generate runs differ")
+        require(tuple(toks1.shape) == (b, new) and int(toks1.max()) < cfg.vocab_size
+                and int(toks1.min()) >= 0, f"({label}) tokens out of the vocabulary")
+        row["first_tokens"] = toks1[0, :8].tolist()
+
+        # prefill ms, decode ms a token, host waits, device share
+        with torch.inference_mode():
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            logits, cache = api.prefill(params, {"tokens": prompts}, max_len=plen + new)
+            e1.record()
+            sync()
+            row["prefill_ms"] = e0.elapsed_time(e1)
+            row["cache_gib"] = _tree_bytes(cache) / 2**30
+            token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            box = {"cache": cache, "token": token, "out": [token]}
+            prof = _decode_profile(api, params, box, plen, min(sz["timed_steps"], new - 3), sync)
+            del box, cache, logits
+        row.update(prof)
+        row["tokens_per_s"] = b * 1e3 / prof["ms_a_token"]
+        row["param_cast_ms"], row["cast_params"] = _param_cast_ms(params, torch.bfloat16, sync)
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  ({label}) {arch} {cfg.n_layers} layers, {row['params'] / 1e9:.3f} B params: "
+            f"generate b{b} x {plen} + {new} in {row['generate_s']:.2f} s (deterministic, equal "
+            f"twice) | prefill {row['prefill_ms']:.1f} ms | decode {prof['ms_a_token']:.2f} ms a "
+            f"token = {row['tokens_per_s']:.0f} tokens/s | device share "
+            f"{100 * (prof['device_share'] or 0):.1f} % | host waits a step "
+            f"{prof['host_waits_a_step']} {prof['waits_at'] or ''}| cache {row['cache_gib']:.2f} "
+            f"GiB | peak {row['peak_gib']:.2f} GiB | card: {card}")
+        log("    its top kernels (device ms, launches): " + "; ".join(
+            f"{n} {ms:.2f} x{c}" for ms, c, n in prof["top_kernels"]))
+        log(f"    device ms of a step by kind: "
+            + "; ".join(f"{k} {v:.2f}" for k, v in prof["device_ms_by_kind"].items())
+            + f" | casting the {row['cast_params'] / 1e9:.3f} B matrix parameters to bf16 once: "
+            f"{row['param_cast_ms']:.2f} ms")
+        require(prof["host_waits_a_step"] == 0,
+                f"({label}) a greedy decode step waited for the host: {prof['waits_at']}")
+
+        # consistency in float32 compute (dropless MoE), with planted faults
+        fcfg = cfg.replace(compute_dtype="float32", remat=False)
+        if fcfg.moe is not None:
+            fcfg = fcfg.replace(moe=dc.replace(fcfg.moe,
+                                               capacity_factor=fcfg.moe.n_routed / fcfg.moe.top_k))
+        fapi = build_model(fcfg)
+        fwd = HY.hybrid_forward if fcfg.ssm is not None else TR.decoder_forward
+        kind = "hybrid" if fcfg.ssm is not None else "mla" if fcfg.mla is not None else "attn"
+        extra_toks = _serve_prompts(cfg, b, extra, 2, dev)
+        sound, planted = _consistency(fapi, params, prompts, extra_toks, fwd, _serve_faults(kind),
+                                      plen)
+        row["consistency"] = {"sound": sound, "planted": planted, "limit": SERVE_CONSIST}
+        log(f"    consistency (f32, {'dropless ' if fcfg.moe else ''}prefill + 3 decode steps vs "
+            f"forward over {plen + extra}): {sound:.2e} (limit {SERVE_CONSIST:g}); planted: "
+            + "; ".join(f"{k} {v:.2e}" for k, v in planted.items()))
+        require(sound <= SERVE_CONSIST, f"({label}) prefill/decode differ from the forward: {sound}")
+        for name, v in planted.items():
+            require(v > SERVE_CONSIST, f"({label}) the consistency check passes a planted fault "
+                                       f"({name}: {v})")
+
+        # the decode_32k rows (bf16 caches from the decode specs; g3 also int8)
+        if label in ("g1", "g3"):
+            row["decode_32k"] = _decode_32k(cfg, api, params, b, sz["long"], dev, sync, label, card)
+        if label == "g3":
+            row["int8"] = _int8_check(cfg, params, b, sz["int8_steps"], dev, label, card)
+        del params, api, fapi
+        out[label] = row
+    fresh()
+    out["g4"] = _serve_g4(dev, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase (g): {out['seconds']:.1f} s | {card}")
+    return out
+
+
+def _decode_32k(cfg, api, params, b, seq, dev, sync, label, card):
+    """decode_step on a zero cache of ``seq`` entries (the decode specs, bf16;
+    for a dense config also int8): ms a token, cache GiB, peak GiB."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.registry import build_model, zeros_like_specs
+
+    rows = {}
+    kinds = [("bf16", cfg)]
+    if cfg.mla is None and cfg.ssm is None:
+        kinds.append(("int8", cfg.replace(kv_cache_dtype="int8")))
+    for name, c in kinds:
+        gc.collect()
+        torch.cuda.empty_cache()
+        a = build_model(c)
+        specs = a.input_specs(ShapeConfig("decode_32k_b8", seq, b, "decode"))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cache = zeros_like_specs(specs["cache"], device=dev)
+        token = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        box = {"cache": cache, "token": token, "out": []}
+        with torch.inference_mode():
+            _greedy(a, params, box, seq - 16)
+            sync()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for i in range(4):
+                _greedy(a, params, box, seq - 15 + i)
+            e1.record()
+            sync()
+        ms = e0.elapsed_time(e1) / 4
+        rows[name] = {"ms_a_token": ms, "tokens_per_s": b * 1e3 / ms,
+                      "cache_gib": _tree_bytes(cache) / 2**30,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_over_params_and_cache_gib":
+                          (torch.cuda.max_memory_allocated() - base - _tree_bytes(cache)) / 2**30}
+        log(f"    ({label}) decode_32k (seq {seq}, b {b}), {name} cache: {ms:.2f} ms a token "
+            f"({rows[name]['tokens_per_s']:.0f} tokens/s) | cache {rows[name]['cache_gib']:.2f} "
+            f"GiB | peak {rows[name]['peak_gib']:.2f} GiB | card: {card}")
+        del box, cache
+    return rows
+
+
+def _int8_check(cfg, params, b, steps, dev, label, card):
+    """``generate`` under the int8 cache raises the reference's TypeError; 64
+    tokens decoded from a zero int8 cache and from a zero bf16 cache give
+    logits at the 65th within SERVE_INT8 relative and the same argmax."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.registry import build_model, zeros_like_specs
+    from repro_torch.serve import engine as ENG
+
+    qcfg = cfg.replace(kv_cache_dtype="int8")
+    prompts = _serve_prompts(cfg, b, steps + 1, 3, dev)
+    try:
+        ENG.generate(build_model(qcfg), params, prompts[:, :8], ENG.ServeConfig(max_new_tokens=3))
+    except TypeError as e:
+        refusal = str(e)
+    else:
+        refusal = None
+    require(refusal is not None and "same dtypes, got float32, int8" in refusal,
+            f"({label}) int8 generate did not raise the reference's TypeError: {refusal!r}")
+    last = {}
+    with torch.inference_mode():
+        for name, c in (("int8", qcfg), ("bf16", cfg)):
+            a = build_model(c)
+            cache = zeros_like_specs(a.input_specs(ShapeConfig("d", steps + 1, b, "decode"))["cache"],
+                                     device=dev)
+            for i in range(steps + 1):
+                logits, cache = a.decode_step(params, cache, prompts[:, i:i + 1], i)
+            last[name] = logits[:, 0, :cfg.vocab_size].float()
+            del cache
+    rel = _logit_rel(last["int8"], last["bf16"])
+    same = bool(torch.equal(last["int8"].argmax(-1), last["bf16"].argmax(-1)))
+    log(f"    ({label}) int8 generate raises {refusal!r}; after {steps} tokens from zero caches "
+        f"the int8 logits at token {steps + 1} read {rel:.2e} of the bf16 cache's (limit "
+        f"{SERVE_INT8:g}), argmax {'equal' if same else 'NOT equal'} | card: {card}")
+    require(rel < SERVE_INT8 and same, f"({label}) int8 decode strays from the bf16 cache")
+    return {"refusal": refusal, "rel": rel, "argmax_equal": same}
+
+
+def _serve_g4(dev, card):
+    """(g4) the card against the port on the CPU at the smoke configs."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import engine as ENG
+
+    rows = {}
+    for arch in SERVE_G4_ARCHS:
+        cfg = configs.get_smoke(arch)
+        api = build_model(cfg)
+        p_cpu = api.init(torch.Generator().manual_seed(0), device="cpu")
+        p_card = tree_map(lambda x: x.to(dev), p_cpu)
+        prompts = _serve_prompts(cfg, 2, 16, 4, "cpu")
+        toks = {}
+        for name, sc in (("greedy", ENG.ServeConfig(8)), ("t0.7", ENG.ServeConfig(8, 0.7, 5))):
+            cpu = ENG.generate(api, p_cpu, prompts, sc)
+            card1 = ENG.generate(api, p_card, prompts.to(dev), sc)
+            card2 = ENG.generate(api, p_card, prompts.to(dev), sc)
+            toks[name] = bool(torch.equal(card1.cpu(), cpu) and torch.equal(card1, card2))
+
+        def logits_of(params, d):
+            with torch.inference_mode():
+                lg, cache = api.prefill(params, {"tokens": prompts.to(d)}, max_len=20)
+                outs = [lg[:, -1]]
+                for i in range(3):
+                    lg, cache = api.decode_step(params, cache, prompts[:, i:i + 1].to(d), 16 + i)
+                    outs.append(lg[:, 0])
+            return [o[:, :cfg.vocab_size].cpu() for o in outs]
+
+        want = logits_of(p_cpu, "cpu")
+        rel = max(_logit_rel(g, w) for g, w in zip(logits_of(p_card, dev), want))
+        with _Plant(_serve_faults("attn" if cfg.ssm is None else "hybrid")
+                    ["the cache written at pos - 1" if cfg.ssm is None
+                     else "the SSM state's decay dropped"]):
+            fault = max(_logit_rel(g, w) for g, w in zip(logits_of(p_card, dev), want))
+        rows[arch] = {"tokens_equal": toks, "logits_rel": rel, "planted": fault}
+        log(f"  (g4) {arch} smoke: card vs CPU tokens greedy {toks['greedy']}, sampled "
+            f"{toks['t0.7']} (equal twice on the card), logits {rel:.2e} (limit "
+            f"{SERVE_G4_TOL:g}), planted fault {fault:.2e} | {card}")
+        require(all(toks.values()), f"(g4) {arch}: the card's tokens differ from the CPU's")
+        require(rel <= SERVE_G4_TOL < fault, f"(g4) {arch}: logits {rel}, fault {fault}")
+    key = ENG.split(ENG.prng_key(2**32 + 9))[1]
+    bits_equal = bool(torch.equal(ENG.random_bits(key, (8, 102400), dev).cpu(),
+                                  ENG.random_bits(key, (8, 102400), "cpu")))
+    log(f"  (g4) threefry bits (8, 102400) card vs CPU: {'equal' if bits_equal else 'NOT equal'}")
+    require(bits_equal, "(g4) the threefry bits differ between the card and the CPU")
+    rows["threefry_bits_equal"] = bits_equal
+    return rows
+
+
 def main() -> int:
     # phase (t3) runs with deterministic algorithms, and cuBLAS reads this
     # before the card's first product
@@ -1211,6 +1722,11 @@ def main() -> int:
     # would not leave room for it) ---------------------------------------------
     log("phase (t): training")
     log("train " + json.dumps(train_phase(dev, card)))
+
+    # -- phase (g), token serving: after (t), while the card's memory is still
+    # free of the later phases' states (g2's zamba2-7b holds 27 GB of params)
+    log("phase (g): token serving")
+    log("serve " + json.dumps(serve_phase(dev, card)))
 
     rng = np.random.default_rng(0)
 

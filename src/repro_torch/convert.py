@@ -18,6 +18,13 @@ numpy leaves, in the port's classes; its leaves, in
 ``_tree.tree_leaves`` order, are the reference's in
 ``jax.tree.leaves`` order, so ``jax.tree.unflatten(treedef_of_the_reference,
 tree_leaves(tree_to_arrays(x)))`` rebuilds the reference's tree.
+
+Serving caches go the same way: ``cache_from_reference`` takes any cache of
+the decoder or the hybrid (the fp KV cache, the int8 one with its float32
+scales, the MLA cache, the hybrid state with ``groups`` / ``attn_kv`` /
+``tail``) with numpy leaves and builds the port's on ``device``, dtypes
+kept; ``cache_to_arrays`` is the way back, a bfloat16 leaf as float32
+(exact).
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import torch
 from repro_torch.api.policy import as_torch_dtype
 from repro_torch.api.state import SvdState, resolve_device
 
-__all__ = ["adamw_state_from_reference", "compression_state_from_reference",
+__all__ = ["adamw_state_from_reference", "cache_from_reference", "cache_to_arrays",
+           "compression_state_from_reference",
            "fleet_snapshot_from_reference", "fleet_snapshot_to_reference",
            "params_from_reference", "snapshot_from_reference", "snapshot_to_reference",
            "spectral_adam_state_from_reference", "spectral_state_from_reference",
@@ -105,11 +113,15 @@ def _step(x) -> torch.Tensor:
 
 def params_from_reference(params, *, device) -> dict:
     """The port's parameter tree (nested dicts of tensors on ``device``) from
-    the reference's (nested dicts of arrays), leaf for leaf, dtypes kept."""
+    the reference's (nested dicts of arrays), leaf for leaf, dtypes kept (a
+    bfloat16 leaf, as numpy holds it through ``ml_dtypes``, included)."""
     dev = resolve_device(device)
     if isinstance(params, dict):
         return {k: params_from_reference(v, device=dev) for k, v in params.items()}
-    return torch.as_tensor(np.array(params), device=dev)
+    a = np.asarray(params)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=dev)
 
 
 def adamw_state_from_reference(st, *, device):
@@ -173,3 +185,23 @@ def tree_to_arrays(tree):
     from repro_torch.train.checkpoint import _to_numpy
 
     return tree_unflatten(tree, [_to_numpy(x) for x in tree_leaves(tree)])
+
+
+# -- serving caches ----------------------------------------------------------
+
+
+def cache_from_reference(cache, *, device) -> dict:
+    """The port's decode cache or hybrid state from the reference's (nested
+    dicts of arrays), leaf for leaf as ``params_from_reference`` carries
+    them, dtypes kept (int8 entries, float32 scales and SSM states, bfloat16
+    or float32 KV)."""
+    return params_from_reference(cache, device=device)
+
+
+def cache_to_arrays(cache) -> dict:
+    """A port cache as nested dicts of numpy arrays, dtypes kept but
+    bfloat16, which comes back as float32 (exact)."""
+    if isinstance(cache, dict):
+        return {k: cache_to_arrays(v) for k, v in cache.items()}
+    x = cache.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()

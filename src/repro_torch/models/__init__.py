@@ -1,6 +1,7 @@
-"""The port's models: the dense decoder's building blocks (``layers``), its
-attention (``attention``), the decoder itself (``transformer``) and the
-registry (``registry.build_model``).  Parameters are the reference's nested
-dicts of tensors, with the decoder's layers stacked on a leading
-``n_layers`` axis.  MoE, MLA, SSM, RWKV, hybrid and encoder-decoder models,
-prefill and decode wait for ROADMAP A9."""
+"""The port's models: building blocks (``layers``), attention with its KV
+cache (``attention``), MLA (``mla``), MoE (``moe``), Mamba2 (``ssm``), the
+decoder (``transformer``: dense, VLM, MoE and MLA configs), the Zamba2 hybrid
+(``hybrid``) and the registry (``registry.build_model``), each with its train
+path, prefill and decode.  Parameters are the reference's nested dicts of
+tensors, with the layers stacked on leading axes.  RWKV and the
+encoder-decoder family wait for ROADMAP A9b."""

@@ -1,13 +1,19 @@
-"""GQA/MQA/MHA attention, the train path, in PyTorch.
+"""GQA/MQA/MHA attention with KV cache (train, prefill, decode), in PyTorch.
 
-Counterpart of ``repro.models.attention``'s ``attn_init``, ``_qkv``,
-``_sdpa_full``, ``_sdpa_blockwise``, ``_sdpa``, ``_maybe_rope`` and
-``attn_train``.  Plain tensor code that follows the reference's einsums:
-float32 scores from compute-dtype operands (``layers.bdot``), the ``-1e30``
-causal mask, and the blockwise form's online softmax over KV blocks.  It
-does not call ``scaled_dot_product_attention``: the reference computes
-attention outside any kernel, so its numerics are the ones held here.  The
-KV cache, prefill and decode wait for ROADMAP A9 (``serve/engine.py``).
+Counterpart of ``repro.models.attention``.  Plain tensor code that follows
+the reference's einsums: float32 scores from compute-dtype operands
+(``layers.bdot``), the ``-1e30`` causal mask, and the blockwise form's online
+softmax over KV blocks.  It does not call ``scaled_dot_product_attention``:
+the reference computes attention outside any kernel, so its numerics are the
+ones held here.
+
+The decode cache is written in place.  The reference's engine donates the
+cache to a jitted ``decode_step``, so XLA writes each step into the same
+buffer; ``attn_decode`` writes the new entries into the tensors it is given
+and returns them (the cache passed in is consumed, as donation does: keep a
+``clone()`` to reuse the old one).  The int8 cache holds per-(token, head)
+symmetric int8 entries with float32 scales; each step dequantizes the whole
+cache, as the reference does.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 
 from repro_torch.models.layers import as_dtype, bdot, dot, rope_apply, uniform_init
 
-__all__ = ["attn_init", "attn_train"]
+__all__ = ["attn_init", "attn_train", "attn_prefill", "attn_decode", "init_kv_cache"]
 
 
 def attn_init(gen, cfg, dtype, lead=()):
@@ -150,3 +156,126 @@ def attn_train(x, p, cfg, positions, causal=True):
     q, k = _maybe_rope(q, k, cfg, positions)
     o = _sdpa(q, k, v, cfg, causal=causal)
     return dot(o, p["wo"], cfg.compute_dtype).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache, prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(batch, max_len, cfg, dtype, *, device="cuda"):
+    """Zero cache of one layer: ``k``/``v`` ``(batch, max_len, kvh, dh)`` in
+    ``dtype``, or with ``cfg.kv_cache_dtype == "int8"`` int8 entries and
+    float32 ``k_scale``/``v_scale`` ``(batch, max_len, kvh)``."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+    dt = as_dtype(dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _quantize_kv(x):
+    """Per-(token, head) symmetric int8 of ``x`` (b, s, kvh, dh): rounded half
+    to even (``torch.round``, as ``jnp.round``), scale ``max|x| / 127 + 1e-12``
+    in float32."""
+    xf = x.float()
+    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(as_dtype(dtype))
+
+
+def _write(buf, new, pos):
+    """``buf[:, pos] = new[:, 0]`` in place (``new`` cast to ``buf``'s dtype):
+    the reference's ``dynamic_update_slice_in_dim`` on a donated buffer.  A
+    Python ``pos`` is a slice; a tensor ``pos`` an ``index_copy_`` (no host
+    wait)."""
+    new = new.to(buf.dtype)
+    if isinstance(pos, torch.Tensor):
+        buf.index_copy_(1, pos.reshape(1).to(device=buf.device, dtype=torch.long), new)
+    else:
+        buf[:, pos:pos + 1] = new
+    return buf
+
+
+def _positions(b, pos, device):
+    """The decode step's (b, 1) int32 positions from a Python or tensor ``pos``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1, 1).to(device=device, dtype=torch.int32).expand(b, 1)
+    return torch.full((b, 1), pos, dtype=torch.int32, device=device)
+
+
+def _decode_valid(sk, pos, device):
+    """The decode mask: the cache positions ``<= pos`` of ``sk``."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device)
+    return torch.arange(sk, device=device) <= pos
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+def _rows_cd(x, cd):
+    """(b, sk, kvh, dh) -> (b*kvh, sk, dh) in the compute dtype, one pass
+    (the transpose and the cast in one copy)."""
+    b, sk, kvh, dh = x.shape
+    out = torch.empty((b, kvh, sk, dh), dtype=cd, device=x.device)
+    out.copy_(x.permute(0, 2, 1, 3))
+    return out.view(b * kvh, sk, dh)
+
+
+def attn_prefill(x, p, cfg, positions):
+    """Full-sequence prefill; returns ``(out, {"k", "v"})`` with ``seq_len``
+    entries in the activations' dtype (no scales, whatever
+    ``kv_cache_dtype`` says, as the reference)."""
+    q, k, v = _qkv(x, p, cfg)
+    q, k = _maybe_rope(q, k, cfg, positions)
+    o = _sdpa(q, k, v, cfg, causal=True)
+    out = dot(o, p["wo"], cfg.compute_dtype).to(x.dtype)
+    return out, {"k": k, "v": v}
+
+
+def attn_decode(x, p, cfg, cache, pos):
+    """One-token decode: ``x`` (b, 1, d); ``cache`` holds ``pos`` valid
+    entries.  Writes the new entry into ``cache`` in place and returns
+    ``(out, cache)``: the cache passed in is consumed.
+
+    With ``cfg.kv_cache_dtype == "int8"`` the entry is quantized per (token,
+    head) with a float32 scale, and the whole cache is dequantized to the
+    activations' dtype for the step.  A float cache under an int8 config
+    raises the reference's ``TypeError`` (its ``dynamic_update_slice`` of int8
+    entries into the float buffer that ``attn_prefill`` returns)."""
+    b = x.shape[0]
+    q, k, v = _qkv(x, p, cfg)
+    q, k = _maybe_rope(q, k, cfg, _positions(b, pos, x.device))
+    cd = as_dtype(cfg.compute_dtype)
+    if cfg.kv_cache_dtype == "int8":
+        if cache["k"].dtype != torch.int8:
+            raise TypeError("lax.dynamic_update_slice requires arguments to have the same "
+                            f"dtypes, got {_dtype_name(cache['k'].dtype)}, int8.")
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        for name, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+            _write(cache[name], new, pos)
+        ck = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        cv = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        ck = _write(cache["k"], k, pos)
+        cv = _write(cache["v"], v, pos)
+    # attend over the whole (static) cache; mask positions beyond pos
+    sk, kvh, dh, h = ck.shape[1], cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    rep = h // kvh
+    scores = bdot(_group_q(q, kvh), _rows_cd(ck, cd).mT, cd) / (dh ** 0.5)  # (b*kvh, rep, sk)
+    scores = torch.where(_decode_valid(sk, pos, x.device), scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    o = bdot(w.to(cd), _rows_cd(cv, cd), cd)
+    o = _ungroup(o, b, kvh, rep, 1, dh).to(x.dtype)
+    return dot(o, p["wo"], cd).to(x.dtype), cache

@@ -1,11 +1,17 @@
 """Architecture registry: one API for the assigned architectures, in PyTorch.
 
 Counterpart of ``repro.models.registry``.  ``build_model(cfg)`` returns a
-``ModelApi`` whose ``train_loss(params, batch)`` serves the train shapes and
-whose ``input_specs(shape)`` gives ``TensorSpec`` stand-ins (shape and dtype,
-no allocation) for every input of the entry point.  The dense decoder family
-(dense and VLM configs) is ported; ``prefill`` and ``decode_step``, and the
-hybrid, RWKV and encoder-decoder families, raise by name (ROADMAP A9).
+``ModelApi`` whose entry points cover the shape kinds:
+
+  train_loss(params, batch)              — train shapes
+  prefill(params, batch, max_len=)       — prefill shapes
+  decode_step(params, cache, token, pos) — decode shapes (the cache is
+                                           written in place and returned)
+
+``input_specs(shape)`` gives ``TensorSpec`` stand-ins (shape and dtype, no
+allocation) for every input of the entry point.  The decoder family (dense,
+VLM, MoE and MLA configs) and the hybrid are ported; the RWKV and
+encoder-decoder families raise by name (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -15,12 +21,12 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.models.layers import as_dtype
 
 __all__ = ["ModelApi", "TensorSpec", "build_model", "zeros_like_specs"]
 
-_A9 = "not ported yet: {what} waits for ROADMAP A9"
+_A9B = "not ported yet: {what} waits for ROADMAP A9b"
 
 
 class TensorSpec(NamedTuple):
@@ -49,43 +55,65 @@ def _tok(b, s):
     return TensorSpec((b, s), torch.int32)
 
 
-def _refuse(what: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(_A9.format(what=what))
-
-    return fn
+def _decode_specs(cache, b):
+    return {"cache": cache, "token": _tok(b, 1), "pos": TensorSpec((), torch.int32)}
 
 
 def _decoder_api(cfg: ModelConfig) -> ModelApi:
     act_dt = as_dtype(cfg.compute_dtype)
 
     def input_specs(shape: ShapeConfig):
-        if shape.kind != "train":
-            raise NotImplementedError(_A9.format(what=f"the {shape.kind} inputs (KV cache)"))
         b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":  # one new token against a cache of seq_len
+            return _decode_specs(transformer.decode_cache_spec(cfg, b, s, act_dt), b)
+        batch = {"tokens": _tok(b, s)}
         if cfg.frontend == "vision":
             p = cfg.n_frontend_tokens
-            return {"batch": {"tokens": _tok(b, s - p), "labels": _tok(b, s - p),
-                              "patches": TensorSpec((b, p, cfg.d_model), act_dt)}}
-        return {"batch": {"tokens": _tok(b, s), "labels": _tok(b, s)}}
+            batch = {"tokens": _tok(b, s - p),
+                     "patches": TensorSpec((b, p, cfg.d_model), act_dt)}
+        if shape.kind == "train":
+            batch["labels"] = batch["tokens"]
+        return {"batch": batch}
 
     return ModelApi(
         cfg=cfg,
         init=lambda gen, *, device="cuda": transformer.decoder_init(gen, cfg, device=device),
         train_loss=lambda params, batch: transformer.decoder_train_loss(params, batch, cfg),
-        prefill=_refuse("decoder prefill (serve/engine.py)"),
-        decode_step=_refuse("decoder decode (serve/engine.py)"),
+        prefill=lambda params, batch, **kw: transformer.decoder_prefill(params, batch, cfg, **kw),
+        decode_step=lambda params, cache, token, pos: transformer.decoder_decode_step(
+            params, cache, token, pos, cfg),
+        input_specs=input_specs,
+    )
+
+
+def _hybrid_api(cfg: ModelConfig) -> ModelApi:
+    act_dt = as_dtype(cfg.compute_dtype)
+
+    def input_specs(shape: ShapeConfig):
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return _decode_specs(hybrid.hybrid_state_spec(cfg, b, s, act_dt), b)
+        batch = {"tokens": _tok(b, s)}
+        if shape.kind == "train":
+            batch["labels"] = _tok(b, s)
+        return {"batch": batch}
+
+    return ModelApi(
+        cfg=cfg,
+        init=lambda gen, *, device="cuda": hybrid.hybrid_init(gen, cfg, device=device),
+        train_loss=lambda params, batch: hybrid.hybrid_train_loss(params, batch, cfg),
+        prefill=lambda params, batch, **kw: hybrid.hybrid_prefill(params, batch, cfg, **kw),
+        decode_step=lambda params, cache, token, pos: hybrid.hybrid_decode_step(
+            params, cache, token, pos, cfg),
         input_specs=input_specs,
     )
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
     if cfg.encdec:
-        raise NotImplementedError(_A9.format(what=f"{cfg.name}: the encoder-decoder family"))
+        raise NotImplementedError(_A9B.format(what=f"{cfg.name}: the encoder-decoder family"))
     if cfg.rwkv is not None:
-        raise NotImplementedError(_A9.format(what=f"{cfg.name}: the RWKV family"))
+        raise NotImplementedError(_A9B.format(what=f"{cfg.name}: the RWKV family"))
     if cfg.ssm is not None and cfg.attn_every > 0:
-        raise NotImplementedError(_A9.format(what=f"{cfg.name}: the hybrid family"))
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(_A9.format(what=f"{cfg.name}: MoE and MLA decoder blocks"))
+        return _hybrid_api(cfg)
     return _decoder_api(cfg)

@@ -1,11 +1,11 @@
-"""Decoder-only transformer (dense), the train path, in PyTorch.
+"""Decoder-only transformer (dense / MoE / MLA variants), train and serve,
+in PyTorch.
 
-Counterpart of ``repro.models.transformer``'s ``decoder_init``,
-``decoder_forward``, ``decoder_train_loss``, ``scan_or_unroll`` and
-``remat_wrap``.  Parameters are the reference's nested dict: ``embed``,
-``layers`` (every leaf stacked on a leading ``n_layers`` axis), ``final_norm``
-and, untied, ``head``; checkpoints, the converters and spectral-Adam's
-eligibility (2-D leaves only) depend on that layout.
+Counterpart of ``repro.models.transformer``.  Parameters are the reference's
+nested dict: ``embed``, ``layers`` (every leaf stacked on a leading
+``n_layers`` axis), ``final_norm`` and, untied, ``head``; checkpoints, the
+converters and spectral-Adam's eligibility (2-D leaves only) depend on that
+layout.  A layer holds ``attn`` or ``mla``, and ``mlp`` or ``moe``.
 
 The layer loop unbinds each stacked leaf once per forward
 (``torch.unbind``): its backward is one ``stack`` of the layers' gradients,
@@ -14,7 +14,13 @@ stacked size for every layer.  Remat: ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant); policy ``"dots"`` saves the
 outputs of the 2-D matrix products (the reference's
 ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest.  Neither
-changes a value.  MoE and MLA blocks, prefill and decode wait for ROADMAP A9.
+changes a value; prefill runs without it when grad is disabled.
+
+Serving: ``decoder_prefill`` returns the stacked cache (leading
+``n_layers`` axis) padded to ``max_len``, in the activations' dtype as the
+reference's; ``decoder_decode_step`` writes each layer's new entry into that
+stacked cache in place and returns it (the cache passed in is consumed, as
+the reference's donated buffer).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from torch.utils.checkpoint import (
 from repro_torch._tree import tree_map
 from repro_torch.api.state import generator_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     as_dtype,
     cross_entropy,
@@ -45,22 +53,26 @@ from repro_torch.models.layers import (
 )
 
 __all__ = [
+    "decode_cache_spec",
+    "decoder_decode_step",
     "decoder_forward",
     "decoder_init",
+    "decoder_prefill",
     "decoder_train_loss",
     "remat_wrap",
     "scan_or_unroll",
 ]
 
-_NOT_PORTED = "not ported yet: MoE and MLA decoder blocks wait for ROADMAP A9"
-
 # the 2-D products the "dots" policy saves (mm with and without out_dtype)
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.mm.dtype}
 
 
-def _check_dense(cfg) -> None:
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED}")
+def _use_mla(cfg) -> bool:
+    return cfg.mla is not None
+
+
+def _use_moe(cfg) -> bool:
+    return cfg.moe is not None
 
 
 def _unbind_tree(stacked, n: int) -> list:
@@ -125,9 +137,16 @@ def _layer_init(gen, cfg, dtype, n):
     stacked_norm = lambda: tree_map(  # noqa: E731
         lambda x: x.expand(lead + x.shape).contiguous(),
         norm_init(cfg.d_model, cfg.norm_type, dtype, dev))
-    return {"ln1": stacked_norm(), "ln2": stacked_norm(),
-            "attn": attn.attn_init(gen, cfg, dtype, lead),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, lead)}
+    p = {"ln1": stacked_norm(), "ln2": stacked_norm()}
+    if _use_mla(cfg):
+        p["mla"] = mla_mod.mla_init(gen, cfg, dtype, lead)
+    else:
+        p["attn"] = attn.attn_init(gen, cfg, dtype, lead)
+    if _use_moe(cfg):
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, lead)
+    return p
 
 
 def decoder_init(gen: torch.Generator, cfg, *, device="cuda") -> dict:
@@ -135,7 +154,6 @@ def decoder_init(gen: torch.Generator, cfg, *, device="cuda") -> dict:
     there), in the reference's layout and scales.  ``torch.Generator`` draws,
     so not the reference's bits: carry those over with
     ``convert.params_from_reference``."""
-    _check_dense(cfg)
     generator_device(gen, device)
     dtype = as_dtype(cfg.param_dtype)
     params = {
@@ -149,10 +167,21 @@ def decoder_init(gen: torch.Generator, cfg, *, device="cuda") -> dict:
     return params
 
 
+def _mixer_train(x, lp, cfg, positions):
+    if _use_mla(cfg):
+        return mla_mod.mla_train(x, lp["mla"], cfg, positions)
+    return attn.attn_train(x, lp["attn"], cfg, positions)
+
+
+def _ffn(x, lp, cfg):
+    if _use_moe(cfg):
+        return moe_mod.moe_apply(x, lp["moe"], cfg)
+    return mlp_apply(x, lp["mlp"], cfg.mlp_type, cfg.compute_dtype)
+
+
 def _layer_train(x, lp, cfg, positions):
-    h = x + attn.attn_train(norm_apply(x, lp["ln1"], cfg.norm_type), lp["attn"], cfg, positions)
-    return h + mlp_apply(norm_apply(h, lp["ln2"], cfg.norm_type), lp["mlp"], cfg.mlp_type,
-                         cfg.compute_dtype)
+    h = x + _mixer_train(norm_apply(x, lp["ln1"], cfg.norm_type), lp, cfg, positions)
+    return h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg)
 
 
 def _logits(x, params, cfg):
@@ -171,7 +200,6 @@ def _embed_inputs(params, batch, cfg):
 
 
 def decoder_forward(params, batch, cfg):
-    _check_dense(cfg)
     x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
@@ -190,3 +218,86 @@ def decoder_train_loss(params, batch, cfg):
     if cfg.frontend == "vision" and "patches" in batch:
         logits = logits[:, -labels.shape[1]:, :]  # loss on the token stream only
     return cross_entropy(logits, labels, cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def decode_cache_spec(cfg, batch, max_len, dtype):
+    """``TensorSpec``s of the stacked decode cache (leading ``n_layers``)."""
+    from repro_torch.models.registry import TensorSpec
+
+    dt = as_dtype(dtype)
+    lead = (cfg.n_layers, batch, max_len)
+    if _use_mla(cfg):
+        return {"c_kv": TensorSpec(lead + (cfg.mla.kv_lora_rank,), dt),
+                "k_rope": TensorSpec(lead + (cfg.mla.qk_rope_head_dim,), dt)}
+    kv = lead + (cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": TensorSpec(kv, torch.int8), "v": TensorSpec(kv, torch.int8),
+                "k_scale": TensorSpec(lead + (cfg.n_kv_heads,), torch.float32),
+                "v_scale": TensorSpec(lead + (cfg.n_kv_heads,), torch.float32)}
+    return {"k": TensorSpec(kv, dt), "v": TensorSpec(kv, dt)}
+
+
+def _into_stacked(stacked, i, lead, cache, max_len=None):
+    """Write a prefill cache (leaves ``(b, s, ...)``) at index ``i`` of stacked
+    buffers ``lead + (b, max_len, ...)`` zero-padded along the sequence (made
+    on the first call; ``max_len`` None keeps ``s``): the reference's pad and
+    scan stacking without the copies."""
+    if stacked is None:
+        stacked = {k: torch.zeros(tuple(lead) + (v.shape[0], max_len or v.shape[1])
+                                  + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
+                   for k, v in cache.items()}
+    for k, v in cache.items():
+        stacked[k][i][:, :v.shape[1]] = v
+    return stacked
+
+
+def decoder_prefill(params, batch, cfg, *, max_len=None):
+    """Returns (last-position logits, stacked cache padded to ``max_len``)."""
+    x = _embed_inputs(params, batch, cfg)
+    b, s, _ = x.shape
+    max_len = max_len or s
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+
+    def body(x_in, lp):
+        h_norm = norm_apply(x_in, lp["ln1"], cfg.norm_type)
+        if _use_mla(cfg):
+            h, cache = mla_mod.mla_prefill(h_norm, lp["mla"], cfg, positions)
+        else:
+            h, cache = attn.attn_prefill(h_norm, lp["attn"], cfg, positions)
+        h = x_in + h
+        return h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg), cache
+
+    if torch.is_grad_enabled():
+        body = remat_wrap(body, cfg)
+    stacked = None
+    layers = _unbind_tree(params["layers"], cfg.n_layers)
+    for i, lp in enumerate(layers):
+        x, cache = body(x, lp)
+        stacked = _into_stacked(stacked, i, (cfg.n_layers,), cache, max_len)
+        del cache
+    x = norm_apply(x, params["final_norm"], cfg.norm_type)
+    return _logits(x[:, -1:, :], params, cfg), stacked
+
+
+def decoder_decode_step(params, cache, token, pos, cfg):
+    """One decode step.  ``token`` (b, 1) int32; ``cache`` stacked over
+    layers, written in place at ``pos`` (a Python int, or a 0-dim tensor) and
+    returned."""
+    x = embed_lookup(token, params["embed"])
+    layers = _unbind_tree(params["layers"], cfg.n_layers)
+    for i, lp in enumerate(layers):
+        cache_l = tree_map(lambda c, i=i: c[i], cache)  # views: the writes land in ``cache``
+        h_norm = norm_apply(x, lp["ln1"], cfg.norm_type)
+        if _use_mla(cfg):
+            h, _ = mla_mod.mla_decode(h_norm, lp["mla"], cfg, cache_l, pos)
+        else:
+            h, _ = attn.attn_decode(h_norm, lp["attn"], cfg, cache_l, pos)
+        h = x + h
+        x = h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg)
+    x = norm_apply(x, params["final_norm"], cfg.norm_type)
+    return _logits(x, params, cfg), cache

@@ -1117,3 +1117,77 @@ def test_train_resume_on_the_card_is_exact(cuda_device, tmp_path, monkeypatch):
     (sa, la), (sb, lb) = ck.restore(tmp_path / "whole", None), ck.restore(tmp_path / "resumed", None)
     assert sa == sb == 4
     assert all(a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(la, lb))
+
+
+# -- token serving (serve.engine.generate) --------------------------------------------
+
+# smoke-config prefill and decode logits, card against CPU, relative to the
+# largest logit (float32 compute, TF32 off: the two devices sum in other orders)
+SERVE_LOGITS_REL = 1e-5
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "qwen2-72b", "deepseek-moe-16b",
+                                  "deepseek-v2-lite-16b", "zamba2-7b"])
+def test_generate_on_the_card_equals_the_cpu(cuda_device, arch):
+    """Greedy and sampled (temperature 0.7) tokens equal on the card and the
+    CPU; the prefill's and a decode step's logits within SERVE_LOGITS_REL."""
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeConfig, generate
+
+    cfg = configs.get_smoke(arch)
+    api = build_model(cfg)
+    p_cpu = api.init(torch.Generator().manual_seed(0), device="cpu")
+    p_card = _to(p_cpu, cuda_device)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)),
+                              dtype=torch.int32)
+    for sc in (ServeConfig(max_new_tokens=8), ServeConfig(8, 0.7, 3)):
+        want = generate(api, p_cpu, prompts, sc)
+        got = generate(api, p_card, prompts.to(cuda_device), sc)
+        assert got.is_cuda and torch.equal(got.cpu(), want), sc
+    with torch.inference_mode():
+        logits = []
+        for p, dev in ((p_cpu, "cpu"), (p_card, cuda_device)):
+            lp, cache = api.prefill(p, {"tokens": prompts.to(dev)}, max_len=20)
+            ld, _ = api.decode_step(p, cache, prompts[:, :1].to(dev), 16)
+            logits.append((lp.cpu(), ld.cpu()))
+    for got, want in zip(logits[1], logits[0]):
+        assert float((got - want).abs().max() / want.abs().max()) < SERVE_LOGITS_REL
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "deepseek-v2-lite-16b", "zamba2-7b"])
+def test_greedy_decode_step_makes_no_host_wait(cuda_device, arch):
+    """A greedy step of ``generate`` (decode, argmax, the token kept on the
+    card) never asks the host for device data."""
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import _sample
+
+    cfg = configs.get_smoke(arch)
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32, device=cuda_device)
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, {"tokens": prompts}, max_len=24)
+        token = _sample(logits[:, -1, :], 0.0, None)[:, None]
+        box = {"cache": cache, "token": token, "out": [token]}
+
+        def step(pos):
+            lg, box["cache"] = api.decode_step(params, box["cache"], box["token"], pos)
+            box["token"] = _sample(lg[:, -1, :], 0.0, None)[:, None]
+            box["out"].append(box["token"])
+
+        step(16)
+        assert _syncs(lambda: step(17)) == []
+        assert _syncs(lambda: torch.cat(box["out"], dim=1)) == []
+
+
+def test_threefry_bits_on_the_card_equal_the_cpu(cuda_device):
+    from repro_torch.serve import engine as E
+
+    key = E.split(E.prng_key(2**32 + 9))[1]
+    for shape in ((5,), (8, 102400)):
+        assert torch.equal(E.random_bits(key, shape, cuda_device).cpu(),
+                           E.random_bits(key, shape, "cpu"))
+    assert torch.equal(E.gumbel(key, (8, 4096), cuda_device).cpu().isfinite(),
+                       torch.ones(8, 4096, dtype=torch.bool))
