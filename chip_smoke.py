@@ -100,7 +100,13 @@ result) when it fails:
    tracker update skipped); (t3) a run resumed at step 3 of 6 equal to the
    uninterrupted one to the bit under deterministic algorithms, and a
    spectral-Adam resume raising the reference's ``ValueError``; (t4)
-   ``examples/train_lm.py``'s repro-tiny run, 60 steps: the loss falls.
+   ``examples/train_lm.py``'s repro-tiny run, 60 steps: the loss falls;
+   (t2) also holds rwkv6-1.6b's smoke config (AdamW) card vs CPU; (t5)
+   rwkv6-1.6b at full width and depth through ``train`` (4 AdamW steps, b 1
+   x seq 4096) and whisper-base's ``train_loss`` + backward + AdamW at seq
+   1500, b 8 (frames (8, 1500, 512)): ms a step, forward and backward, the
+   device share, host waits (0: a check), peak memory; ``train`` on whisper
+   raising the reference's ``KeyError: 'frames'``.
 (g) token serving, ``serve.engine.generate`` over ``ModelApi.prefill`` /
    ``decode_step`` (no kernel of its own; ``SERVE*``; run after (t)): (g1)
    deepseek-v2-lite-16b (MLA + MoE) at full width, 8 of its 27 layers; (g2)
@@ -118,9 +124,22 @@ result) when it fails:
    decay dropped); decode_32k rows (seq 32768, b 8) on zero caches from the
    decode specs (bf16; (g3) also int8); (g3) int8 ``generate`` raising the
    reference's TypeError and 64 tokens decoded from zero int8 and bf16
-   caches agreeing at the 65th; (g4) the card against the port on the CPU at
-   five smoke configs (tokens greedy and sampled, logits, a planted fault)
-   and the threefry bits equal.
+   caches agreeing at the 65th; (g5) rwkv6-1.6b and (g6) whisper-base at
+   full width and depth through ``prefill`` + ``decode_step`` (``generate``
+   raises the reference's TypeError for both: a check): (g5) b 8 prompts of
+   1024 tokens and 32 greedy tokens, (g6) b 8 x 1500 frames, a 4-token
+   decoder prompt, ``max_dec_len`` 448 and 64 greedy tokens; the same checks
+   and figures as (g1)-(g3) plus the launches a step, the state's or the
+   caches' MiB, and A-F's launches on the path (0); consistency in f32 with
+   planted faults ((g5) the token shift not carried, the decay or the u
+   bonus dropped; (g6) the self cache written at pos - 1, every layer
+   reading layer 0's cross K/V, the sinusoid taken at pos - 1); (g5) the
+   chunked WKV against the recurrence at full width over the prompt, and
+   the decode_32k (b 128) and long_500k (b 1) rows from zero states; (g4)
+   the card against the port on the CPU at seven smoke configs (tokens
+   greedy and sampled through ``generate``, or greedy through ``prefill`` +
+   ``decode_step`` for RWKV and whisper; logits; a planted fault) and the
+   threefry bits equal.  Each phase prints its seconds.
 
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
@@ -406,6 +425,13 @@ TRAIN_T2_BF16 = {"loss": 1e-4, "grads": 2.0 ** -6, "losses": 1e-3}
 # (t4) examples/train_lm.py's default run (repro-tiny, batch 8, seq 128,
 # lr 1e-3, warmup 20), 60 steps of AdamW: the loss must fall
 TRAIN_T4 = {"steps": 60, "batch": 8, "seq": 128}
+# (t5) rwkv6-1.6b at full width and depth (1.58 B parameters) through
+# train.loop.train, AdamW, 4 steps at batch 1 x seq 4096 (train_4k's
+# sequence, its batch of 256 cut to 1 by one card, as (t1)); whisper-base's
+# train_loss + backward + AdamW on the registry's train specs at seq 1500,
+# b 8 (frames (8, 1500, 512) bf16, decoder tokens (8, 375))
+TRAIN_T5 = {"rwkv": "rwkv6-1.6b", "steps": 4, "seq": 4096, "batch": 1,
+            "encdec": "whisper-base", "enc_seq": 1500, "enc_batch": 8}
 
 # phase (g), token serving (serve.engine.generate over ModelApi.prefill /
 # decode_step; no kernel of A-F on the path), each model built at its
@@ -447,6 +473,36 @@ SERVE_G4_TOL = 1e-5
 SERVE_KERNEL_KINDS = (("products", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
                       ("copies and casts", ("copy", "convert")),
                       ("softmax and reductions", ("softmax", "reduce")))
+
+# (g5) rwkv6-1.6b (src/repro_torch/configs/rwkv6_1_6b.py: 24 layers, d 2048,
+# d_ff 7168, vocab 65536, head 64, decay LoRA 64, chunk 64) and (g6)
+# whisper-base (whisper_base.py: 6 encoder and 6 decoder layers, d 512, 8
+# heads, d_ff 2048, vocab 51865 padded to 51968), each at full width and
+# depth (1.58 B and 97 M parameters fit one card whole), f32 parameters,
+# bf16 compute, through prefill + decode_step (generate raises for both, as
+# in the reference).  (g5): b 8 prompts of 1024 tokens and 32 greedy tokens;
+# the decode rows from zero states of the decode specs at
+# SHAPES["decode_32k"] (its full batch of 128: the state is O(1)) and
+# SHAPES["long_500k"] (b 1).  (g6): b 8 x 1500 frames (Whisper's 30-second
+# encoder context) in bf16, a 4-token decoder prompt (the
+# start-of-transcript sequence), max_dec_len 448 (Whisper's text context),
+# 64 greedy tokens.  Consistency as (g1)-(g3), over prompt + 128 tokens.
+SERVE_FAMILIES = {
+    "g5": {"arch": "rwkv6-1.6b", "batch": 8, "prompt": 1024, "new": 32, "extra": 128,
+           "timed_steps": 8, "rows": (("decode_32k", 32768, 128), ("long_500k", 524288, 1))},
+    "g6": {"arch": "whisper-base", "batch": 8, "frames": 1500, "prompt": 4, "max_dec_len": 448,
+           "new": 64, "extra": 128, "timed_steps": 8, "rows": ()},
+}
+# (g5) the chunked WKV against the recurrence on the same full-width inputs
+# (layer 0 over the 1024-token prompt, f32), max |delta| over the largest
+# value, of y and of the final state: the CPU reads 3.3e-7 and 5.7e-7 at b 1
+# on a random init (the recurrence against float64 1.5e-7), the decay
+# dropped from the recurrence 8.0 and 11.2
+RWKV_CHUNK_TOL = 1e-5
+# (g4) the families that serve through prefill + decode_step, and their
+# planted fault
+SERVE_G4_FAMILIES = {"rwkv6-1.6b": "the decay dropped from the recurrence",
+                     "whisper-base": "the self cache written at pos - 1"}
 
 # one world at a time, in this order: NCCL can take one rank a card, gloo
 # stages CUDA tensors through the host
@@ -1036,7 +1092,7 @@ def train_phase(dev, card: str) -> dict:
                   "optimizer_peak_over_held": op["peak"] - op["held_before"],
                   "optimizer_leaves": op["held_after"] - op["held_before"],
                   "step_peak": max(fb["peak"], op["peak"])}
-        del holder
+        del holder, one_step       # its default argument holds the step's state too
         gc.collect()
         torch.cuda.empty_cache()
         steady = split[1:]
@@ -1093,18 +1149,19 @@ def train_phase(dev, card: str) -> dict:
           "spectral_adam": SA.spectral_adam_init(torch.Generator().manual_seed(2), p0,
                                                  rank=TRAIN_T2["rank"], device="cpu")}
 
-    def t2_run(device, name, fault=None, api_=sapi):
-        params, state = _tree_to(p0, device), _tree_to(s0[name], device)
+    def t2_run(device, name, fault=None, api_=sapi, inits=(p0, s0)):
+        params, state = _tree_to(inits[0], device), _tree_to(inits[1][name], device)
         opt = dc.replace(base_opt, weight_decay=0.0) if fault == "weight decay dropped" \
             else base_opt
         losses = []
         for step in range(TRAIN_T2["steps"]):
-            batch = batch_for_step(0, step, batch=2, seq=32, vocab=scfg.vocab_size, device=device)
+            batch = batch_for_step(0, step, batch=2, seq=32, vocab=api_.cfg.vocab_size,
+                                   device=device)
             if fault in (None, "weight decay dropped"):
                 params, state, loss, _ = loop.train_step(api_, opt, params, state, batch, step,
                                                          spectral=name == "spectral_adam")
             else:
-                loss, grads = loop.loss_and_grads(sapi, params, batch)
+                loss, grads = loop.loss_and_grads(api_, params, batch)
                 lr = warmup_cosine(step, base_lr=opt.lr, warmup_steps=opt.warmup_steps,
                                    total_steps=opt.total_steps)
                 with torch.no_grad():
@@ -1120,27 +1177,33 @@ def train_phase(dev, card: str) -> dict:
         return torch.tensor(losses, dtype=torch.float64), params
 
     t2 = {}
-    for name, faults in (("adamw", ("bias correction dropped", "weight decay dropped")),
-                         ("spectral_adam", ("one tracker update skipped",
-                                            "weight decay dropped"))):
-        cpu_l, cpu_p = t2_run("cpu", name)
-        card_l, card_p = t2_run(dev, name)
+    # rwkv6-1.6b's smoke config under the same limits (AdamW)
+    rapi = build_model(configs.get_smoke(TRAIN_T5["rwkv"]))
+    rp0 = rapi.init(torch.Generator().manual_seed(1), device="cpu")
+    rwkv_run = {"api_": rapi, "inits": (rp0, {"adamw": AW.adamw_init(rp0)})}
+    for name, faults, kw in (
+            ("adamw", ("bias correction dropped", "weight decay dropped"), {}),
+            ("spectral_adam", ("one tracker update skipped", "weight decay dropped"), {}),
+            ("adamw", ("bias correction dropped", "weight decay dropped"), rwkv_run)):
+        label = name if not kw else f"{name} {TRAIN_T5['rwkv']} smoke"
+        cpu_l, cpu_p = t2_run("cpu", name, **kw)
+        card_l, card_p = t2_run(dev, name, **kw)
         loss_err = float(((card_l - cpu_l).abs() / cpu_l.abs()).max())
         param_err = _rel_max(card_p, cpu_p)
         row = {"loss_rel": loss_err, "params_rel": param_err, "faults": {}}
-        log(f"  (t2) {name}: card vs CPU losses {loss_err:.2e} (limit {TRAIN_T2['loss']:g}), "
+        log(f"  (t2) {label}: card vs CPU losses {loss_err:.2e} (limit {TRAIN_T2['loss']:g}), "
             f"params {param_err:.2e} (limit {TRAIN_T2['params']:g}) | {card}")
         require(loss_err <= TRAIN_T2["loss"] and param_err <= TRAIN_T2["params"],
-                f"(t2) {name}: the card differs from the CPU beyond the limits")
+                f"(t2) {label}: the card differs from the CPU beyond the limits")
         for fault in faults:
-            f_l, f_p = t2_run(dev, name, fault)
+            f_l, f_p = t2_run(dev, name, fault, **kw)
             fl = float(((f_l - cpu_l).abs() / cpu_l.abs()).max())
             fp = _rel_max(f_p, cpu_p)
             row["faults"][fault] = {"loss_rel": fl, "params_rel": fp}
             log(f"    planted fault, {fault}: losses {fl:.2e}, params {fp:.2e}")
             require(fl > TRAIN_T2["loss"] or fp > TRAIN_T2["params"],
-                    f"(t2) {name}: the check passes a planted fault ({fault})")
-        t2[name] = row
+                    f"(t2) {label}: the check passes a planted fault ({fault})")
+        t2[label] = row
     # the same in bf16 compute: the card's bmm.dtype / mm.dtype path
     bapi = build_model(scfg.replace(compute_dtype="bfloat16"))
     batch0 = batch_for_step(0, 0, batch=2, seq=32, vocab=scfg.vocab_size, device="cpu")
@@ -1216,11 +1279,180 @@ def train_phase(dev, card: str) -> dict:
         f"({t4_s:.1f} s) | {card}")
     require(last < first, f"(t4) the loss did not fall: {first} -> {last}")
     out["t4"] = {"losses": res.losses, "seconds": t4_s}
+    out["t5"] = _train_t5(dev, card, work)
     shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase (t): {out['seconds']:.1f} s | {card}")
+    return out
+
+
+def _train_t5_steps(dev, card, label, one_step, n_params, vocab, clock_steps, extra):
+    """The step figures of a (t5) row: ms a step by piece over ``clock_steps``
+    (CUDA events, after the first), the host waits of one more step (0: a
+    check), the device's busy share of one more (profiler), the first loss
+    against ln(vocab)."""
+    import math
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses = []
+    with _StepClock() as clock:
+        for step in range(clock_steps):
+            losses.append(one_step(step))
+    split = clock.split()
+    losses = [float(v) for v in losses]
+    waits, where = count_syncs(lambda: one_step(clock_steps))
+    sync = torch.cuda.synchronize
+    sync()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step(clock_steps + 1)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = sorted(((ev.device_time_total / 1e3, ev.key[:60]) for ev in prof.key_averages()
+                        if ev.device_time_total > 0), reverse=True)
+    busy = sum(ms for ms, _ in by_kernel)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    steady = split[1:] or split
+    row = {"params": n_params, "losses": losses,
+           "step_ms": [st["step_ms"] for st in split],
+           "mean_step_ms": statistics.mean(st["step_ms"] for st in steady),
+           "mean_fwd_bwd_ms": statistics.mean(st["fwd_bwd_ms"] for st in steady),
+           "host_waits_a_step": waits, "waits_at": where, "profiled_step_ms": wall,
+           "device_busy_ms": busy, "device_share": busy / wall if wall > 0 else None,
+           "top_kernels_ms": by_kernel[:8], "peak_over_start_gib": peak, **extra}
+    log(f"  (t5) {label}, {n_params / 1e9:.4f} B params: {row['mean_step_ms']:.1f} ms a step "
+        f"(fwd+bwd {row['mean_fwd_bwd_ms']:.1f}; steps {[round(v, 1) for v in row['step_ms']]}) "
+        f"| losses {[round(v, 4) for v in losses]} | device share {100 * busy / wall:.1f} % "
+        f"({busy:.1f} of {wall:.1f} ms) | host waits a step {waits} {where or ''}| peak "
+        f"{peak:.2f} GiB over {base / 2**30:.2f} held | card: {card}")
+    log("    its kernels by device ms: " + "; ".join(f"{k} {ms:.1f}" for ms, k in by_kernel[:6]))
+    require(all(math.isfinite(v) for v in losses), f"(t5) {label}: losses not finite: {losses}")
+    require(abs(losses[0] - math.log(vocab)) < TRAIN_FIRST_LOSS_SLACK,
+            f"(t5) {label}: first loss {losses[0]} not within {TRAIN_FIRST_LOSS_SLACK} of "
+            f"ln({vocab})")
+    require(waits == 0, f"(t5) {label}: a training step waited for the card {waits} times: {where}")
+    return row
+
+
+def _train_t5(dev, card, work) -> dict:
+    """(t5): rwkv6-1.6b through ``train`` at full width and depth, and
+    whisper-base's train_loss + backward + AdamW on its train specs; train on
+    whisper raises the reference's KeyError: 'frames'."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw as AW
+    from repro_torch.train import loop
+
+    out = {}
+    t_cell = time.perf_counter()
+    opt = OptimizerConfig(warmup_steps=2, total_steps=100)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # rwkv6-1.6b through train(): 4 AdamW steps, then steps outside the loop
+    cfg = configs.get(TRAIN_T5["rwkv"])
+    fresh()
+    base = torch.cuda.memory_allocated()
+    run = RunConfig(model=cfg, optimizer=opt, steps=TRAIN_T5["steps"], log_every=1,
+                    checkpoint_every=0, checkpoint_dir=str(work / "t5_rwkv"), seed=0)
+    t0 = time.perf_counter()
+    with _StepClock() as clock:
+        res = loop.train(run, batch_size=TRAIN_T5["batch"], seq_len=TRAIN_T5["seq"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    split = clock.split()
+    losses = [v for _, v in res.losses]
+    require(len(losses) == TRAIN_T5["steps"] and all(math.isfinite(v) for v in losses),
+            f"(t5) rwkv train: losses not finite: {losses}")
+    require(abs(losses[0] - math.log(cfg.vocab_size)) < TRAIN_FIRST_LOSS_SLACK,
+            f"(t5) rwkv train: first loss {losses[0]} not within {TRAIN_FIRST_LOSS_SLACK} of "
+            f"ln({cfg.vocab_size})")
+    log(f"  (t5) {cfg.name} train(): {TRAIN_T5['steps']} AdamW steps at b{TRAIN_T5['batch']} x "
+        f"{TRAIN_T5['seq']} in {wall:.1f} s with init | losses {[round(v, 4) for v in losses]} | "
+        f"steps {[round(st['step_ms'], 1) for st in split]} ms (fwd+bwd "
+        f"{[round(st['fwd_bwd_ms'], 1) for st in split]}) | peak {train_peak:.2f} GiB | {card}")
+    del res
+    fresh()
+    api = build_model(cfg)
+    holder = {"p": api.init(torch.Generator(device=dev).manual_seed(0), device=dev)}
+    holder["s"] = AW.adamw_init(holder["p"])
+    n_params = sum(x.numel() for x in tree_leaves(holder["p"]))
+
+    def rwkv_step(step):
+        batch = batch_for_step(0, step, batch=TRAIN_T5["batch"], seq=TRAIN_T5["seq"],
+                               vocab=cfg.vocab_size, device=dev)
+        holder["p"], holder["s"], loss, _ = loop.train_step(api, opt, holder["p"], holder["s"],
+                                                            batch, step, spectral=False)
+        return loss
+
+    out["rwkv"] = _train_t5_steps(
+        dev, card, f"{cfg.name} {cfg.n_layers} layers, AdamW, b{TRAIN_T5['batch']} x "
+                   f"{TRAIN_T5['seq']}", rwkv_step, n_params, cfg.vocab_size, 3,
+        {"train_losses": losses, "train_wall_s": wall, "train_peak_gib": train_peak,
+         "train_steps": split})
+    del holder
+    fresh()
+
+    # whisper-base: train_loss + backward + AdamW on its train specs
+    ecfg = configs.get(TRAIN_T5["encdec"])
+    eapi = build_model(ecfg)
+    specs = eapi.input_specs(ShapeConfig("train", TRAIN_T5["enc_seq"], TRAIN_T5["enc_batch"],
+                                         "train"))["batch"]
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames = (torch.randn(specs["frames"].shape, generator=g, device=dev) * 0.02).to(
+        specs["frames"].dtype)
+    holder = {"p": eapi.init(torch.Generator(device=dev).manual_seed(0), device=dev)}
+    holder["s"] = AW.adamw_init(holder["p"])
+    n_params = sum(x.numel() for x in tree_leaves(holder["p"]))
+    s_dec = specs["tokens"].shape[1]
+
+    def whisper_step(step):
+        batch = batch_for_step(0, step, batch=TRAIN_T5["enc_batch"], seq=s_dec,
+                               vocab=ecfg.vocab_size, device=dev)
+        batch["frames"] = frames
+        holder["p"], holder["s"], loss, _ = loop.train_step(eapi, opt, holder["p"], holder["s"],
+                                                            batch, step, spectral=False)
+        return loss
+
+    out["whisper"] = _train_t5_steps(
+        dev, card, f"{ecfg.name} train_loss + backward + AdamW, frames "
+                   f"{tuple(specs['frames'].shape)} {str(specs['frames'].dtype)[6:]}, tokens "
+                   f"{tuple(specs['tokens'].shape)}", whisper_step, n_params, ecfg.vocab_size, 4,
+        {"frames": list(specs["frames"].shape), "tokens": list(specs["tokens"].shape)})
+    del holder, frames
+    fresh()
+    run = RunConfig(model=ecfg, optimizer=opt, steps=1, log_every=1, checkpoint_every=0,
+                    checkpoint_dir=str(work / "t5_whisper"), seed=0)
+    try:
+        loop.train(run, batch_size=1, seq_len=64, device=dev)
+    except KeyError as e:
+        refusal = repr(e)
+    else:
+        refusal = None
+    log(f"  (t5) train() on {ecfg.name} raises as the reference does: {refusal}")
+    require(refusal == "KeyError('frames')",
+            f"(t5) train on {ecfg.name} did not raise the reference's KeyError: {refusal}")
+    out["whisper_train_refusal"] = refusal
+    out["seconds"] = time.perf_counter() - t_cell
+    log(f"  (t5): {out['seconds']:.1f} s | {card}")
     return out
 
 
@@ -1348,6 +1580,7 @@ def _decode_profile(api, params, box, pos0, steps, sync):
     busy = sum(cats.values())
     return {"ms_a_token": ms, "profiled_step_ms": wall, "device_busy_ms": busy,
             "device_share": busy / wall if wall > 0 else None,
+            "launches_a_step": sum(c for _, c, _ in kernels),
             "device_ms_by_kind": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
             "top_kernels": sorted(kernels, reverse=True)[:8],
             "host_waits_a_step": waits, "waits_at": where}
@@ -1375,19 +1608,25 @@ def _param_cast_ms(params, cd, sync):
     return statistics.median(times), sum(x.numel() for x in leaves)
 
 
-def _consistency(api_f32, params, prompts, extra_toks, fwd, faults, prompt_len):
+def _consistency(api_f32, params, prompts, extra_toks, fwd, faults, prompt_len, inputs=None,
+                 prefill_key="max_len"):
     """The prefill's last logits and 3 teacher-forced decode steps against the
-    full forward (float32 compute); then each planted fault's reading."""
+    full forward (float32 compute); then each planted fault's reading.
+    ``inputs``: more entries of both batches (the encoder's frames);
+    ``prefill_key``: the keyword that sizes the prefill's cache (None for
+    RWKV, whose state has no length)."""
     import torch
 
     seq = torch.cat([prompts, extra_toks], dim=1)
+    inputs = inputs or {}
+    kw = {prefill_key: seq.shape[1]} if prefill_key else {}
     with torch.inference_mode():
-        full = fwd(params, {"tokens": seq}, api_f32.cfg)
+        full = fwd(params, {"tokens": seq, **inputs}, api_f32.cfg)
         want = [full[:, prompt_len - 1 + i] for i in range(4)]
         del full
 
         def drive():
-            logits, cache = api_f32.prefill(params, {"tokens": prompts}, max_len=seq.shape[1])
+            logits, cache = api_f32.prefill(params, {"tokens": prompts, **inputs}, **kw)
             got = [logits[:, -1]]
             for i in range(3):
                 logits, cache = api_f32.decode_step(
@@ -1529,11 +1768,289 @@ def serve_phase(dev, card: str, sizes=None) -> dict:
             row["int8"] = _int8_check(cfg, params, b, sz["int8_steps"], dev, label, card)
         del params, api, fapi
         out[label] = row
+    for label in ("g5", "g6"):
+        fresh()
+        out[label] = _serve_family(label, dev, card, dict(SERVE_FAMILIES[label],
+                                                          **sz.get(label, {})))
     fresh()
     out["g4"] = _serve_g4(dev, card)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase (g): {out['seconds']:.1f} s | {card}")
     return out
+
+
+def _family_faults(kind):
+    """The planted faults of the RWKV and encoder-decoder consistency drives,
+    by name (each a list of (module, attribute, wrapper of the original))."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import rwkv as RW
+
+    if kind == "rwkv":
+        def shift_not_carried(orig):
+            def step(x, p, cfg, state):
+                return orig(x, p, cfg, dict(state, tm_x=torch.zeros_like(state["tm_x"])))
+            return step
+
+        def decay_dropped(orig):
+            return lambda r, k, v, logw, u, st: orig(r, k, v, torch.zeros_like(logw), u, st)
+
+        def bonus_dropped(orig):
+            return lambda r, k, v, logw, u, st: orig(r, k, v, logw, torch.zeros_like(u), st)
+
+        return {"the token shift not carried (tm_x left at zero)":
+                [(RW, "rwkv_decode_step", shift_not_carried)],
+                "the decay dropped from the recurrence": [(RW, "wkv_recurrent", decay_dropped)],
+                "the u bonus dropped": [(RW, "wkv_recurrent", bonus_dropped)]}
+
+    def layer0_cross(orig):
+        def step(params, cache, token, pos, cfg):
+            cross = {k: v[:1].expand_as(v) for k, v in cache["cross"].items()}
+            return orig(params, dict(cache, cross=cross), token, pos, cfg)
+        return step
+
+    def sinusoid_at_pos_minus_1(orig):
+        return lambda pos, device: orig(pos - 1, device)
+
+    return {"the self cache written at pos - 1":
+            [(A, "_write", lambda orig: lambda buf, new, pos: orig(buf, new, pos - 1))],
+            "every layer reading layer 0's cross K/V": [(ED, "encdec_decode_step", layer0_cross)],
+            "the sinusoid taken at pos - 1": [(ED, "_decode_position", sinusoid_at_pos_minus_1)]}
+
+
+def _family_inputs(cfg, b, frames, seed, dev, dtype=None):
+    """The encoder's frames (b, frames, d) from a seed (N(0, 0.02)), in the
+    compute dtype unless ``dtype``; {} for a decoder-only family."""
+    import torch
+
+    from repro_torch.models.layers import as_dtype
+
+    if not cfg.encdec:
+        return {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, frames, cfg.d_model), generator=g, device=dev) * 0.02
+    return {"frames": x.to(dtype or as_dtype(cfg.compute_dtype))}
+
+
+def _family_greedy(api, params, batch, new, prefill_kw):
+    """``generate``'s loop over ``prefill`` + ``decode_step`` (these families
+    have no ``generate``): ``new`` greedy tokens, (b, new) int32."""
+    import torch
+
+    from repro_torch.serve.engine import _sample
+
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, batch, **prefill_kw)
+        token = _sample(logits[:, -1, :], 0.0, None)[:, None]
+        box = {"cache": cache, "token": token, "out": [token]}
+        pos = batch["tokens"].shape[1]
+        for i in range(new - 1):
+            _greedy(api, params, box, pos + i)
+    return torch.cat(box["out"], dim=1)
+
+
+def _wkv_chunk_check(cfg, params, prompts, card):
+    """(g5) the chunked WKV against the recurrence on layer 0's inputs over
+    the prompt at full width (f32), y and the final state; the decay dropped
+    from the recurrence must read above the limit."""
+    import torch
+
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.layers import embed_lookup, norm_apply
+
+    b, l = prompts.shape
+    h, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    with torch.inference_mode():
+        lp = {k: (v[0] if not isinstance(v, dict) else {kk: vv[0] for kk, vv in v.items()})
+              for k, v in params["layers"].items()}
+        x = norm_apply(embed_lookup(prompts, params["embed"]), lp["ln1"], cfg.norm_type)
+        xs = RW._shift(x, torch.zeros_like(x[:, 0]))
+        r, k, v, _, logw = RW._projections(x, xs, lp["mix"], cfg)
+        ins = [a.reshape(b, l, h, hd) for a in (r, k, v, logw)]
+        st0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=prompts.device)
+        y_c, s_c = RW._wkv_chunked(*ins, lp["mix"]["u_bonus"], st0, cfg.rwkv.chunk)
+        y_r, s_r = RW.wkv_recurrent(*ins, lp["mix"]["u_bonus"], st0)
+        y_f, s_f = RW.wkv_recurrent(*ins[:3], torch.zeros_like(ins[3]), lp["mix"]["u_bonus"], st0)
+    sound = (_logit_rel(y_c, y_r), _logit_rel(s_c, s_r))
+    fault = (_logit_rel(y_c, y_f), _logit_rel(s_c, s_f))
+    log(f"    chunked WKV vs the recurrence, layer 0 over the {l}-token prompt (b {b}, f32): y "
+        f"{sound[0]:.2e}, final state {sound[1]:.2e} (limit {RWKV_CHUNK_TOL:g}); planted, the "
+        f"decay dropped from the recurrence: {fault[0]:.2e}, {fault[1]:.2e} | card: {card}")
+    require(max(sound) <= RWKV_CHUNK_TOL, f"(g5) the chunked WKV differs from the recurrence: "
+                                          f"{sound}")
+    require(min(fault) > RWKV_CHUNK_TOL, f"(g5) the WKV check passes a planted fault: {fault}")
+    return {"y_rel": sound[0], "state_rel": sound[1], "planted": fault}
+
+
+def _family_rows(cfg, params, rows, dev, sync, label, card):
+    """decode_step from zero states of the decode specs at each (name, seq,
+    batch): ms a token (CUDA events over 4 steps after one), state MiB, peak."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.registry import build_model, zeros_like_specs
+
+    api = build_model(cfg)
+    out = {}
+    for name, seq, b in rows:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = zeros_like_specs(api.input_specs(ShapeConfig(name, seq, b, "decode"))["cache"],
+                                 device=dev)
+        mib = _tree_bytes(cache) / 2**20
+        box = {"cache": cache, "token": torch.zeros((b, 1), dtype=torch.int32, device=dev),
+               "out": []}
+        del cache
+        with torch.inference_mode():
+            _greedy(api, params, box, seq - 5)
+            sync()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for i in range(4):
+                _greedy(api, params, box, seq - 4 + i)
+            e1.record()
+            sync()
+        ms = e0.elapsed_time(e1) / 4
+        out[name] = {"seq": seq, "batch": b, "ms_a_token": ms, "tokens_per_s": b * 1e3 / ms,
+                     "state_mib": mib, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"    ({label}) {name} (seq {seq}, b {b}) from a zero state: {ms:.2f} ms a token "
+            f"({b * 1e3 / ms:.0f} tokens/s) | state {mib:.1f} MiB | peak "
+            f"{out[name]['peak_gib']:.2f} GiB | card: {card}")
+        del box
+    return out
+
+
+def _serve_family(label, dev, card, sz) -> dict:
+    """(g5) / (g6): an RWKV or encoder-decoder config at full width through
+    prefill + decode_step; raises on any failed check."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import rwkv_model as RM
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import engine as ENG
+
+    sync = torch.cuda.synchronize
+    t_cell = time.perf_counter()
+    cfg = sz.get("cfg") or configs.get(sz["arch"])
+    b, plen, new, extra = sz["batch"], sz["prompt"], sz["new"], sz["extra"]
+    row = {"arch": sz["arch"], "n_layers": cfg.n_layers, "compute": cfg.compute_dtype}
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    sync()
+    row["params"] = sum(x.numel() for x in tree_leaves(params))
+    prompts = _serve_prompts(cfg, b, plen, 1, dev)
+    inputs = _family_inputs(cfg, b, sz.get("frames", 0), 7, dev)
+    batch = {"tokens": prompts, **inputs}
+    prefill_kw = {"max_dec_len": sz["max_dec_len"]} if cfg.encdec else {}
+
+    # prefill + greedy decode, twice, under deterministic algorithms: equal to
+    # the bit; the launch counters of A-F zeroed before, read after
+    _build.reset_launches()
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        toks1 = _family_greedy(api, params, batch, new, prefill_kw)
+        sync()
+        row["generate_s"] = time.perf_counter() - t0
+        row["generate_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        toks2 = _family_greedy(api, params, batch, new, prefill_kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    row["kernel_launches"] = dict(_build.LAUNCHES)
+    require(torch.equal(toks1, toks2), f"({label}) two greedy runs differ")
+    require(tuple(toks1.shape) == (b, new) and int(toks1.max()) < cfg.vocab_size
+            and int(toks1.min()) >= 0, f"({label}) tokens out of the vocabulary")
+    require(not any(row["kernel_launches"].values()),
+            f"({label}) a kernel of A-F launched on this path: {row['kernel_launches']}")
+    row["first_tokens"] = toks1[0, :8].tolist()
+    try:
+        ENG.generate(api, params, prompts[:, :8], ENG.ServeConfig(max_new_tokens=3))
+    except TypeError as e:
+        refusal = str(e)
+    else:
+        refusal = None
+    require(refusal is not None and "unexpected keyword argument 'max_len'" in refusal,
+            f"({label}) generate did not raise the reference's TypeError: {refusal!r}")
+    row["generate_refusal"] = refusal
+
+    # prefill ms, decode ms a token, launches, host waits, device share
+    with torch.inference_mode():
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        logits, cache = api.prefill(params, batch, **prefill_kw)
+        e1.record()
+        sync()
+        row["prefill_ms"] = e0.elapsed_time(e1)
+        if cfg.encdec:
+            row["self_cache_mib"] = _tree_bytes(cache["self"]) / 2**20
+            row["cross_cache_mib"] = _tree_bytes(cache["cross"]) / 2**20
+        else:
+            row["state_mib"] = _tree_bytes(cache) / 2**20
+        token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        box = {"cache": cache, "token": token, "out": [token]}
+        prof = _decode_profile(api, params, box, plen, min(sz["timed_steps"], new - 3), sync)
+        del box, cache, logits
+    row.update(prof)
+    row["tokens_per_s"] = b * 1e3 / prof["ms_a_token"]
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    sizes = (f"self cache {row['self_cache_mib']:.1f} MiB, cross cache "
+             f"{row['cross_cache_mib']:.1f} MiB" if cfg.encdec else
+             f"state {row['state_mib']:.1f} MiB")
+    what = (f"b{b} x {sz['frames']} frames, prompt {plen}, max_dec_len {sz['max_dec_len']}"
+            if cfg.encdec else f"b{b} x {plen}")
+    log(f"  ({label}) {sz['arch']} {cfg.n_layers} layers, {row['params'] / 1e9:.4f} B params: "
+        f"{what} + {new} greedy tokens in {row['generate_s']:.2f} s (deterministic, equal "
+        f"twice; A-F launches {sum(row['kernel_launches'].values())}) | prefill "
+        f"{row['prefill_ms']:.1f} ms | decode {prof['ms_a_token']:.2f} ms a token = "
+        f"{row['tokens_per_s']:.0f} tokens/s | {prof['launches_a_step']} launches a step | device "
+        f"share {100 * (prof['device_share'] or 0):.1f} % | host waits a step "
+        f"{prof['host_waits_a_step']} {prof['waits_at'] or ''}| {sizes} | peak "
+        f"{row['peak_gib']:.2f} GiB | card: {card}")
+    log("    its top kernels (device ms, launches): " + "; ".join(
+        f"{n} {ms:.2f} x{c}" for ms, c, n in prof["top_kernels"]))
+    log("    device ms of a step by kind: "
+        + "; ".join(f"{k} {v:.2f}" for k, v in prof["device_ms_by_kind"].items())
+        + f" | generate raises {refusal!r}")
+    require(prof["host_waits_a_step"] == 0,
+            f"({label}) a greedy decode step waited for the host: {prof['waits_at']}")
+
+    # consistency in float32 compute, with planted faults
+    fcfg = cfg.replace(compute_dtype="float32", remat=False)
+    fapi = build_model(fcfg)
+    extra_toks = _serve_prompts(cfg, b, extra, 2, dev)
+    f_inputs = {k: v.float() for k, v in inputs.items()}
+    fwd = ED.encdec_forward if cfg.encdec else RM.rwkv_forward
+    kind = "encdec" if cfg.encdec else "rwkv"
+    sound, planted = _consistency(fapi, params, prompts, extra_toks, fwd, _family_faults(kind),
+                                  plen, inputs=f_inputs,
+                                  prefill_key="max_dec_len" if cfg.encdec else None)
+    row["consistency"] = {"sound": sound, "planted": planted, "limit": SERVE_CONSIST}
+    log(f"    consistency (f32, prefill + 3 decode steps vs the forward over {plen + extra} "
+        f"tokens): {sound:.2e} (limit {SERVE_CONSIST:g}); planted: "
+        + "; ".join(f"{k} {v:.2e}" for k, v in planted.items()))
+    require(sound <= SERVE_CONSIST, f"({label}) prefill/decode differ from the forward: {sound}")
+    for name, v in planted.items():
+        require(v > SERVE_CONSIST, f"({label}) the consistency check passes a planted fault "
+                                   f"({name}: {v})")
+    del fapi
+    if not cfg.encdec:
+        row["wkv_chunked_vs_recurrent"] = _wkv_chunk_check(cfg, params, prompts, card)
+    if sz["rows"]:
+        row["rows"] = _family_rows(cfg, params, sz["rows"], dev, sync, label, card)
+    row["seconds"] = time.perf_counter() - t_cell
+    log(f"    ({label}): {row['seconds']:.1f} s | {card}")
+    return row
 
 
 def _decode_32k(cfg, api, params, b, seq, dev, sync, label, card):
@@ -1665,6 +2182,8 @@ def _serve_g4(dev, card):
             f"{SERVE_G4_TOL:g}), planted fault {fault:.2e} | {card}")
         require(all(toks.values()), f"(g4) {arch}: the card's tokens differ from the CPU's")
         require(rel <= SERVE_G4_TOL < fault, f"(g4) {arch}: logits {rel}, fault {fault}")
+    for arch, fault_name in SERVE_G4_FAMILIES.items():
+        rows[arch] = _serve_g4_family(arch, fault_name, dev, card)
     key = ENG.split(ENG.prng_key(2**32 + 9))[1]
     bits_equal = bool(torch.equal(ENG.random_bits(key, (8, 102400), dev).cpu(),
                                   ENG.random_bits(key, (8, 102400), "cpu")))
@@ -1672,6 +2191,53 @@ def _serve_g4(dev, card):
     require(bits_equal, "(g4) the threefry bits differ between the card and the CPU")
     rows["threefry_bits_equal"] = bits_equal
     return rows
+
+
+def _serve_g4_family(arch, fault_name, dev, card):
+    """(g4) for a family that serves through prefill + decode_step: greedy
+    tokens equal on the card (twice) and the CPU, the prefill's and 3 decode
+    steps' logits within SERVE_G4_TOL, a planted fault above it."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.models.registry import build_model
+
+    cfg = configs.get_smoke(arch)
+    api = build_model(cfg)
+    p_cpu = api.init(torch.Generator().manual_seed(0), device="cpu")
+    p_card = tree_map(lambda x: x.to(dev), p_cpu)
+    prompts = _serve_prompts(cfg, 2, 16, 4, "cpu")
+    inputs = _family_inputs(cfg, 2, 24, 6, "cpu")
+    kw = {"max_dec_len": 24} if cfg.encdec else {}
+
+    def batch_on(d):
+        return {"tokens": prompts.to(d), **{k: v.to(d) for k, v in inputs.items()}}
+
+    cpu = _family_greedy(api, p_cpu, batch_on("cpu"), 8, kw)
+    card1 = _family_greedy(api, p_card, batch_on(dev), 8, kw)
+    card2 = _family_greedy(api, p_card, batch_on(dev), 8, kw)
+    toks = bool(torch.equal(card1.cpu(), cpu) and torch.equal(card1, card2))
+
+    def logits_of(params, d):
+        with torch.inference_mode():
+            lg, cache = api.prefill(params, batch_on(d), **kw)
+            outs = [lg[:, -1]]
+            for i in range(3):
+                lg, cache = api.decode_step(params, cache, prompts[:, i:i + 1].to(d), 16 + i)
+                outs.append(lg[:, 0])
+        return [o[:, :cfg.vocab_size].cpu() for o in outs]
+
+    want = logits_of(p_cpu, "cpu")
+    rel = max(_logit_rel(g, w) for g, w in zip(logits_of(p_card, dev), want))
+    with _Plant(_family_faults("encdec" if cfg.encdec else "rwkv")[fault_name]):
+        fault = max(_logit_rel(g, w) for g, w in zip(logits_of(p_card, dev), want))
+    log(f"  (g4) {arch} smoke (prefill + decode_step): card vs CPU greedy tokens {toks} (equal "
+        f"twice on the card), logits {rel:.2e} (limit {SERVE_G4_TOL:g}), planted fault "
+        f"({fault_name}) {fault:.2e} | {card}")
+    require(toks, f"(g4) {arch}: the card's tokens differ from the CPU's")
+    require(rel <= SERVE_G4_TOL < fault, f"(g4) {arch}: logits {rel}, fault {fault}")
+    return {"tokens_equal": {"greedy": toks}, "logits_rel": rel, "planted": fault}
 
 
 def main() -> int:
@@ -2291,7 +2857,7 @@ def main() -> int:
         return rows
 
     # -- phase 2: kernels against their plain versions --------------------------
-    log("kernels vs plain:")
+    log(f"kernels vs plain (phase 2, from {time.perf_counter() - t_run:.0f} s into the run):")
     errs = {}
     cases = {}
     # kernel C at the headline B16 R=N=M=192 and at the three shapes the main
@@ -2579,7 +3145,8 @@ def main() -> int:
         del plan, w, unmasked, operands
 
     # -- phase 3: the main path ---------------------------------------------------
-    log("main path (api.update_many / api.update):")
+    log(f"main path (api.update_many / api.update; phase 3, from {time.perf_counter() - t_run:.0f} "
+        f"s into the run):")
     m, n, bsz = 128, 192, 4
     fp = full_inputs(bsz, m, n, torch.float64)
     full_probs = [(recon(*(x[i] for x in fp[:3])).cpu().numpy(), fp[3][i].cpu().numpy(),
@@ -2643,7 +3210,8 @@ def main() -> int:
         require(launches[kname] > 0, f"the main path never launched {kname}")
 
     # -- phase 3b: the structured-update path (api.apply / api.apply_many) -----
-    log("structured updates (api.apply / api.apply_many), default policy:")
+    log(f"structured updates (api.apply / api.apply_many), default policy (phase 3b, from "
+        f"{time.perf_counter() - t_run:.0f} s into the run):")
     def stacked(sts, device="cpu"):
         return [torch.stack([getattr(x, f) for x in sts]).to(device) for f in ("u", "s", "v")]
 
@@ -2774,7 +3342,8 @@ def main() -> int:
                          lambda: api.apply_many(sts3, [op3] * b3)))
 
     # -- phase 3c: the FMM route (api.update / api.update_many) --------------------
-    log("FMM route (auto above the fused gate, and method='fmm'):")
+    log(f"FMM route (auto above the fused gate, and method='fmm'; phase 3c, from "
+        f"{time.perf_counter() - t_run:.0f} s into the run):")
     fmm_overflows = {}
     fmm_rows = []
 
@@ -2848,9 +3417,11 @@ def main() -> int:
         require(np.isfinite(e) and e <= limit, f"{label}: {e} from the truth, above {limit}")
 
     # -- phase 3d: the streaming service --------------------------------------------
+    log(f"phase 3d from {time.perf_counter() - t_run:.0f} s into the run")
     service_ctx = service_phase()
 
     # -- phase 3e: the fleet tier, the batch mesh and the collectives ----------------
+    log(f"phase 3e from {time.perf_counter() - t_run:.0f} s into the run")
     def launches_of(name, fn):
         """Run ``fn`` with the counters zeroed before it and read after it
         (kept in ``drive_launches`` for the kernels line); the counts of the

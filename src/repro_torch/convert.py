@@ -22,9 +22,14 @@ tree_leaves(tree_to_arrays(x)))`` rebuilds the reference's tree.
 Serving caches go the same way: ``cache_from_reference`` takes any cache of
 the decoder or the hybrid (the fp KV cache, the int8 one with its float32
 scales, the MLA cache, the hybrid state with ``groups`` / ``attn_kv`` /
-``tail``) with numpy leaves and builds the port's on ``device``, dtypes
-kept; ``cache_to_arrays`` is the way back, a bfloat16 leaf as float32
-(exact).
+``tail``), RWKV's stacked state (``tm_x`` / ``wkv`` / ``cm_x``: the token
+shifts bfloat16 from the decode specs or float32 after a step, wkv float32)
+or the encoder-decoder's cache (``self`` / ``cross``, each ``k`` / ``v``;
+the cross K/V in the frames' dtype) with numpy leaves and builds the port's
+on ``device``, dtypes kept; ``cache_to_arrays`` is the way back, a bfloat16
+leaf as float32 (exact).  The parameters of every family (the stacked
+``layers``, ``enc_layers`` / ``dec_layers``) go through
+``params_from_reference`` and ``tree_to_arrays``.
 """
 
 from __future__ import annotations

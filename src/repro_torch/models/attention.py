@@ -194,14 +194,23 @@ def _dequantize_kv(q, scale, dtype):
 
 def _write(buf, new, pos):
     """``buf[:, pos] = new[:, 0]`` in place (``new`` cast to ``buf``'s dtype):
-    the reference's ``dynamic_update_slice_in_dim`` on a donated buffer.  A
-    Python ``pos`` is a slice; a tensor ``pos`` an ``index_copy_`` (no host
-    wait)."""
+    the reference's ``dynamic_update_slice_in_dim`` on a donated buffer.  The
+    slot is the one that call picks: a negative ``pos`` counts from the end
+    (jax adds ``sk``), then the start is clamped to ``[0, sk - 1]`` as XLA
+    clamps it, so past the end of the cache the entry overwrites the last
+    slot.  A Python ``pos`` is resolved on the host and written through a
+    slice; a tensor ``pos`` on its device, and written with ``index_copy_``
+    (no host wait)."""
     new = new.to(buf.dtype)
+    sk = buf.shape[1]
     if isinstance(pos, torch.Tensor):
-        buf.index_copy_(1, pos.reshape(1).to(device=buf.device, dtype=torch.long), new)
+        idx = pos.reshape(1).to(device=buf.device, dtype=torch.long)
+        idx = torch.where(idx < 0, idx + sk, idx).clamp(0, sk - 1)
+        buf.index_copy_(1, idx, new)
     else:
-        buf[:, pos:pos + 1] = new
+        slot = int(pos)
+        slot = min(max(slot + sk if slot < 0 else slot, 0), sk - 1)
+        buf[:, slot:slot + 1] = new
     return buf
 
 

@@ -59,8 +59,7 @@ def hybrid_layout(cfg):
 
 
 def _mamba_layers_init(gen, cfg, dtype, lead):
-    norm = norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device)
-    return {"ln": tree_map(lambda x: x.expand(lead + x.shape).contiguous(), norm),
+    return {"ln": norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device, lead),
             "ssm": ssm_mod.ssm_init(gen, cfg, dtype, lead)}
 
 

@@ -125,12 +125,13 @@ def layernorm(x, w, b, eps=1e-5):
     return out.to(x.dtype)
 
 
-def norm_init(d, norm_type, dtype, device):
-    dt = as_dtype(dtype)
+def norm_init(d, norm_type, dtype, device, lead=()):
+    """Norm weights; ``lead`` prepends axes (the stacked layers)."""
+    dt, shape = as_dtype(dtype), tuple(lead) + (d,)
     if norm_type == "rmsnorm":
-        return {"w": torch.ones((d,), dtype=dt, device=device)}
-    return {"w": torch.ones((d,), dtype=dt, device=device),
-            "b": torch.zeros((d,), dtype=dt, device=device)}
+        return {"w": torch.ones(shape, dtype=dt, device=device)}
+    return {"w": torch.ones(shape, dtype=dt, device=device),
+            "b": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def norm_apply(x, p, norm_type):

@@ -133,11 +133,8 @@ def remat_wrap(body, cfg):
 
 def _layer_init(gen, cfg, dtype, n):
     lead = (n,)
-    dev = gen.device
-    stacked_norm = lambda: tree_map(  # noqa: E731
-        lambda x: x.expand(lead + x.shape).contiguous(),
-        norm_init(cfg.d_model, cfg.norm_type, dtype, dev))
-    p = {"ln1": stacked_norm(), "ln2": stacked_norm()}
+    p = {"ln1": norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device, lead),
+         "ln2": norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device, lead)}
     if _use_mla(cfg):
         p["mla"] = mla_mod.mla_init(gen, cfg, dtype, lead)
     else:

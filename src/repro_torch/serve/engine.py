@@ -116,7 +116,11 @@ def _sample(logits, temperature, key):
 def generate(api: ModelApi, params, prompts: torch.Tensor, serve_cfg: ServeConfig,
              *, max_len: int | None = None) -> torch.Tensor:
     """``prompts`` (b, prompt_len) int32 on the parameters' device.  Returns
-    (b, max_new_tokens) int32 there."""
+    (b, max_new_tokens) int32 there.  Past ``max_len`` each decode step
+    overwrites the cache's last slot, as the reference's does.  The RWKV and
+    encoder-decoder families raise the reference's ``TypeError`` here (their
+    ``prefill`` takes no ``max_len``): they serve through ``prefill`` +
+    ``decode_step``."""
     b, prompt_len = prompts.shape
     total = prompt_len + serve_cfg.max_new_tokens
     max_len = max_len or total

@@ -1182,6 +1182,107 @@ def test_greedy_decode_step_makes_no_host_wait(cuda_device, arch):
         assert _syncs(lambda: torch.cat(box["out"], dim=1)) == []
 
 
+def _family_batch(cfg, dev, b=2, s=16):
+    """Prompts (and, for the encoder-decoder, 24 frames) from a seed."""
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                       dtype=torch.int32).to(dev)}
+    if cfg.encdec:
+        batch["frames"] = torch.as_tensor(rng.normal(size=(b, 24, cfg.d_model)) * 0.02,
+                                          dtype=torch.float32).to(dev)
+    return batch
+
+
+def _family_greedy(api, params, batch, steps, pos_as_tensor=False):
+    """Prefill + greedy decode_step (these families have no ``generate``):
+    the logits of each step and the tokens."""
+    kw = {"max_dec_len": batch["tokens"].shape[1] + steps} if api.cfg.encdec else {}
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, batch, **kw)
+        outs, toks = [logits[:, -1]], []
+        for i in range(steps):
+            token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks.append(token)
+            pos = batch["tokens"].shape[1] + i
+            if pos_as_tensor:
+                pos = torch.tensor(pos, dtype=torch.int32, device=token.device)
+            logits, cache = api.decode_step(params, cache, token, pos)
+            outs.append(logits[:, 0])
+    return outs, torch.cat(toks, dim=1)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-base"])
+def test_rwkv_and_encdec_on_the_card_equal_the_cpu(cuda_device, arch):
+    """Prefill + 6 greedy decode steps at the smoke config: tokens equal on
+    the card and the CPU, logits within SERVE_LOGITS_REL of the largest; a
+    0-dim tensor ``pos`` on the card gives the int's bits."""
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+
+    cfg = configs.get_smoke(arch)
+    api = build_model(cfg)
+    p_cpu = api.init(torch.Generator().manual_seed(0), device="cpu")
+    p_card = _to(p_cpu, cuda_device)
+    want, want_toks = _family_greedy(api, p_cpu, _family_batch(cfg, "cpu"), 6)
+    got, got_toks = _family_greedy(api, p_card, _family_batch(cfg, cuda_device), 6)
+    again, again_toks = _family_greedy(api, p_card, _family_batch(cfg, cuda_device), 6,
+                                       pos_as_tensor=True)
+    assert torch.equal(got_toks.cpu(), want_toks) and torch.equal(again_toks, got_toks)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        v = cfg.vocab_size
+        assert float((g[:, :v].cpu() - w[:, :v]).abs().max() / w[:, :v].abs().max()) < SERVE_LOGITS_REL
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-base"])
+@pytest.mark.parametrize("pos_as_tensor", [False, True], ids=["int-pos", "tensor-pos"])
+def test_rwkv_and_encdec_decode_step_makes_no_host_wait(cuda_device, arch, pos_as_tensor):
+    """A greedy decode step (the token kept on the card) never asks the host
+    for device data, whether ``pos`` is an int or a tensor on the card."""
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+
+    cfg = configs.get_smoke(arch)
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    batch = _family_batch(cfg, cuda_device)
+    kw = {"max_dec_len": 24} if cfg.encdec else {}
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, batch, **kw)
+        box = {"cache": cache, "token": logits[:, -1].argmax(-1).to(torch.int32)[:, None]}
+
+        def step(pos):
+            lg, box["cache"] = api.decode_step(params, box["cache"], box["token"], pos)
+            box["token"] = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+        pos = [torch.tensor(p, dtype=torch.int32, device=cuda_device) if pos_as_tensor else p
+               for p in (16, 17)]
+        step(pos[0])
+        assert _syncs(lambda: step(pos[1])) == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wkv_chunked_equals_the_recurrence_on_the_card(cuda_device, dtype):
+    """The chunked WKV against the recurrence on the card (init-like decays,
+    a non-zero state), relative to their largest value, and the card's
+    chunked form against the CPU's."""
+    from repro_torch.models import rwkv as RW
+
+    rng = np.random.default_rng(3)
+    b, l, h, dk = 2, 64, 4, 16
+    ins = [rng.normal(size=(b, l, h, dk)) for _ in range(3)] + [
+        -rng.uniform(0.01, 0.3, (b, l, h, dk)), rng.normal(size=(h, dk)),
+        rng.normal(size=(b, h, dk, dk))]
+    cpu = [torch.as_tensor(a, dtype=dtype) for a in ins]
+    card = [a.to(cuda_device) for a in cpu]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    y_c, s_c = RW._wkv_chunked(*card, chunk=16)
+    y_r, s_r = RW.wkv_recurrent(*card)
+    y_h, s_h = RW._wkv_chunked(*cpu, chunk=16)
+    for got, want in ((y_c, y_r), (s_c, s_r), (y_c.cpu(), y_h), (s_c.cpu(), s_h)):
+        assert float((got - want).abs().max() / want.abs().max()) < tol
+
+
 def test_threefry_bits_on_the_card_equal_the_cpu(cuda_device):
     from repro_torch.serve import engine as E
 

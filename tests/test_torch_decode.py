@@ -113,6 +113,48 @@ def test_attn_prefill_then_decode_fp(h, kvh, bias):
         assert _rel(pc[k], rc[k]) < F32
 
 
+@pytest.mark.parametrize("pos", [0, 3, 4, 7, -2, -9], ids=["0", "last", "sk", "sk+3", "negative",
+                                                        "below-negative"])
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
+def test_write_clamps_like_dynamic_update_slice(pos, as_tensor):
+    """``_write`` into a cache of 4 slots equals the reference's
+    ``lax.dynamic_update_slice_in_dim``, which clamps the start into
+    [0, sk - 1]: at pos = sk and past it the entry overwrites the last slot
+    (ROADMAP queue C, C1), for a Python and a 0-dim tensor ``pos``; a
+    negative ``pos`` counts from the end first, as jax's index rule."""
+    buf = np.zeros((2, 4, 3), np.float32)
+    new = np.arange(1, 7, dtype=np.float32).reshape(2, 1, 3)
+    want = jax.lax.dynamic_update_slice_in_dim(jnp.asarray(buf), jnp.asarray(new),
+                                               jnp.asarray(pos, jnp.int32), axis=1)
+    p = torch.tensor(pos, dtype=torch.int32) if as_tensor else pos
+    got = PATT._write(_t(buf), _t(new), p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_encdec_first_decode_after_a_default_prefill():
+    """``encdec_prefill``'s self cache is the prompt's own length by default,
+    so the first decode step writes past its end: the reference overwrites
+    the last slot (C1), and so does the port; logits and caches equal the
+    reference's."""
+    rcfg, pcfg = _cfgs("whisper-base")
+    rapi, papi = RREG.build_model(rcfg), PREG.build_model(pcfg)
+    params = rapi.init(jax.random.PRNGKey(21))
+    rng = np.random.default_rng(22)
+    frames = (rng.normal(size=(2, 12, rcfg.d_model)) * 0.02).astype(np.float32)
+    toks = rng.integers(0, rcfg.vocab_size, (2, 9)).astype(np.int32)
+    r_l, r_c = jax.jit(lambda p, f, t: rapi.prefill(p, {"frames": f, "tokens": t}))(
+        params, jnp.asarray(frames), jnp.asarray(toks[:, :8]))
+    r_l, r_c = jax.jit(rapi.decode_step)(params, r_c, jnp.asarray(toks[:, 8:]),
+                                         jnp.asarray(8, jnp.int32))
+    with torch.no_grad():
+        _, p_c = papi.prefill(_port(params), {"frames": _t(frames), "tokens": _t(toks[:, :8])})
+        assert tuple(p_c["self"]["k"].shape[2:3]) == (8,)
+        p_l, p_c = papi.decode_step(_port(params), p_c, _t(toks[:, 8:]), 8)
+    assert _rel(p_l, r_l) < F32
+    for got, want in zip(jax.tree.leaves(convert.cache_to_arrays(p_c)), jax.tree.leaves(r_c)):
+        assert got.shape == want.shape and _rel(got, want) < F32
+
+
 def _int8_entries_agree(got, want):
     got, want = _np(got).astype(np.int64), np.asarray(want).astype(np.int64)
     assert np.abs(got - want).max() <= 1

@@ -37,8 +37,10 @@ and its port counterpart (parameters carried over by
   gradient (``tail.ssm.a_log``, measured on the CPU), so a hybrid leaf past
   1e-5 is held to 1e-5 plus that spread, measured in the test;
 * every entry point's input specs (train, prefill, decode; fp and int8
-  caches, MLA, hybrid) equal to the reference's in shape and dtype, and the
-  MoE, MLA and hybrid inits in the reference's layout.
+  caches, MLA, hybrid, RWKV's state, whisper's frames and caches) equal to
+  the reference's in shape and dtype, and the MoE, MLA and hybrid inits in
+  the reference's layout; ``generate``'s refusal of RWKV and whisper (the
+  reference's ``TypeError``) in both packages.
 
 ``tests/test_data_checkpoint.py``'s data tests run here as oracles of the
 port; a test checks that the new modules import neither jax nor the
@@ -66,6 +68,7 @@ from repro_torch.models import attention as PATT
 from repro_torch.models import layers as PL
 from repro_torch.models import registry as PREG
 from repro_torch.models import transformer as PTR
+from repro_torch.serve import engine as PENG
 
 RCFG = ref("configs")
 RBASE = ref("configs.base")
@@ -75,6 +78,7 @@ RL = ref("models.layers")
 RREG = ref("models.registry")
 RMOE = ref("models.moe")
 RMLA = ref("models.mla")
+RENG = ref("serve.engine")
 
 F32_LAYER = 1e-6
 F32_MODEL = 1e-5
@@ -419,11 +423,27 @@ def test_decoder_init_layout_and_first_loss():
 
 
 def test_registry_specs_and_refusals():
-    """The families not ported yet refuse by name (ROADMAP A9b)."""
-    for arch in ("whisper-base", "rwkv6-1.6b"):
+    """Every config builds (RWKV and the encoder-decoder too), and
+    ``generate`` refuses those two families with the reference's
+    ``TypeError`` naming ``max_len``, in both packages: their ``prefill``
+    takes no ``max_len`` (RWKV none, whisper ``max_dec_len``; ROADMAP queue
+    C).  The specs are held in ``test_registry_specs_match_reference``."""
+    for arch in PCFG.ARCH_IDS:
         for get in (PCFG.get, PCFG.get_smoke):
-            with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-                PREG.build_model(get(arch))
+            assert PREG.build_model(get(arch)).cfg == get(arch)
+    for arch, who in (("rwkv6-1.6b", "_rwkv_api.<locals>.<lambda>()"),
+                      ("whisper-base", "encdec_prefill()")):
+        rapi = RREG.build_model(RCFG.get_smoke(arch))
+        papi = PREG.build_model(PCFG.get_smoke(arch))
+        params = rapi.init(jax.random.PRNGKey(0))
+        pp = convert.params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
+        prompts = np.zeros((1, 8), np.int32)
+        msg = f"{who} got an unexpected keyword argument 'max_len'"
+        with pytest.raises(TypeError) as want:
+            RENG.generate(rapi, params, jnp.asarray(prompts), RENG.ServeConfig(max_new_tokens=2))
+        with pytest.raises(TypeError) as got:
+            PENG.generate(papi, pp, _t(prompts), PENG.ServeConfig(max_new_tokens=2))
+        assert str(got.value) == str(want.value) == msg
 
 
 def _spec_shapes(tree):
@@ -445,12 +465,14 @@ def test_registry_train_specs_match_reference():
     assert tuple(vlm.input_specs(ShapeConfig("t", 32, 2, "train"))["batch"]["patches"].shape) == (2, 8, 64)
 
 
-@pytest.mark.parametrize("arch", DENSE + ("phi-3-vision-4.2b",) + SPARSE)
+@pytest.mark.parametrize("arch", DENSE + ("phi-3-vision-4.2b",) + SPARSE + (
+    "rwkv6-1.6b", "whisper-base"))
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_registry_specs_match_reference(arch, kind):
     """Every entry point's input specs, shapes and dtypes, equal to the
     reference's (bf16 compute, as published; the int8 cache for one dense
-    config)."""
+    config; RWKV's state with wkv float32; whisper's frames, its decoder
+    tokens at max(s // dec_ratio, 64) and its self and cross caches at s)."""
     rcfg, pcfg = RCFG.get_smoke(arch), PCFG.get_smoke(arch)
     if arch == "qwen1.5-32b":
         rcfg, pcfg = rcfg.replace(kv_cache_dtype="int8"), pcfg.replace(kv_cache_dtype="int8")

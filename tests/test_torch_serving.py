@@ -119,6 +119,24 @@ def test_int8_generate_raises_in_both():
         PENG.generate(papi, pp, torch.as_tensor(prompts), PENG.ServeConfig(max_new_tokens=3))
 
 
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "deepseek-v2-lite-16b", "zamba2-7b"])
+def test_generate_past_a_short_max_len_equals_the_reference(arch):
+    """``max_len`` shorter than prompt + new tokens: past the end of its
+    cache each decode step overwrites the last slot, in the reference (its
+    dynamic update slice clamps the start) and in the port (C1); the
+    tokens equal the reference's."""
+    rcfg, pcfg = RCFG.get_smoke(arch), PCFG.get_smoke(arch)
+    rapi, papi = RREG.build_model(rcfg), PREG.build_model(pcfg)
+    params = rapi.init(jax.random.PRNGKey(0))
+    pp = convert.params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
+    prompts = np.random.default_rng(0).integers(0, rcfg.vocab_size, (2, 8)).astype(np.int32)
+    want = RENG.generate(rapi, params, jnp.asarray(prompts), RENG.ServeConfig(max_new_tokens=5),
+                         max_len=10)
+    got = PENG.generate(papi, pp, torch.as_tensor(prompts), PENG.ServeConfig(max_new_tokens=5),
+                        max_len=10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_serve_config_defaults_equal():
     assert dataclasses.asdict(PENG.ServeConfig()) == dataclasses.asdict(RENG.ServeConfig())
 

@@ -195,7 +195,9 @@ def test_log_every_straggler_hook_and_refusals(tmp_path):
 
 
 def _init_calls():
+    from repro_torch.models import encdec as PED
     from repro_torch.models import registry as PREG
+    from repro_torch.models import rwkv_model as PRM
     from repro_torch.models import transformer as PTR
     from repro_torch.optim import compression as PC
     from repro_torch.optim import spectral as PS
@@ -206,6 +208,9 @@ def _init_calls():
     return {
         "ModelApi.init": lambda gen, **kw: PREG.build_model(cfg).init(gen, **kw),
         "decoder_init": lambda gen, **kw: PTR.decoder_init(gen, cfg, **kw),
+        "rwkv_model_init": lambda gen, **kw: PRM.rwkv_model_init(
+            gen, PCFG.get_smoke("rwkv6-1.6b"), **kw),
+        "encdec_init": lambda gen, **kw: PED.encdec_init(gen, PCFG.get_smoke("whisper-base"), **kw),
         "spectral_init": lambda gen, **kw: PS.spectral_init(gen, 64, 48, 4, **kw),
         "spectral_adam_init": lambda gen, **kw: PSA.spectral_adam_init(gen, params, rank=4, **kw),
         "compression_init": lambda gen, **kw: PC.compression_init(gen, 64, 48, 4, **kw),
