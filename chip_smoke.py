@@ -139,7 +139,23 @@ result) when it fails:
    the card against the port on the CPU at seven smoke configs (tokens
    greedy and sampled through ``generate``, or greedy through ``prefill`` +
    ``decode_step`` for RWKV and whisper; logits; a planted fault) and the
-   threefry bits equal.  Each phase prints its seconds.
+   threefry bits equal.
+(m) the model side of sharding and the launch tier (no kernel of its own;
+   ``SHARD*``; run after (g)): (m1) (t1)'s model (granite-34b at its
+   published widths, 2 layers, bf16 compute, remat "full", AdamW) under a
+   (4, 2) ``make_host_mesh`` of the card: ``train_step`` at b 4 x seq 1024
+   against the mesh-less step on one batch (the loss and the parameter
+   update beside their limits), the check shown to reject the slices summed
+   rather than averaged and one slice dropped; then ``train(mesh=)`` at b 4 x
+   seq 4096: ms a step, the forward-and-backward share, peak memory, host
+   waits (0: a check), and whether the mesh-less step fits there; (m2)
+   ``reshard`` of (m1)'s host tree onto ``plan_mesh()``: equal to the bit,
+   its seconds; (m3) the dry-run of perf_iter's three LM cells on the 16 x
+   16 meta mesh (three terms, useful FLOPs), and the compute term of (t1)'s
+   own configuration on one card held under (t1)'s measured step; (m4)
+   ``perf_iter --svd``'s cells on the card (FLOPs, bytes, useful ratio,
+   seconds); A-F's launches over the phase (0: a check).  Each phase prints
+   its seconds.
 
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
@@ -507,6 +523,30 @@ SERVE_G4_FAMILIES = {"rwkv6-1.6b": "the decay dropped from the recurrence",
 # one world at a time, in this order: NCCL can take one rank a card, gloo
 # stages CUDA tensors through the host
 MERGE_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
+
+# phase (m), the model side of sharding and the launch tier (no kernel of A-F
+# on the path).  (m1) (t1)'s model (granite-34b at its published widths, 2
+# of 88 layers, bf16 compute, remat "full", AdamW) under a (4, 2)
+# make_host_mesh of the card: one step of train_step at global batch 4 x seq
+# 1024 (the mesh-less step fits there too) against the mesh-less step on the
+# same batch from one init, lr 1e-4 from the first step; then train(mesh=) at
+# batch 4 x seq 4096 (SHAPES["train_4k"]'s sequence; its batch of 256 cut to
+# 4, one sequence a data entry), 3 steps.  The check's measures: the loss
+# |delta| / |loss|, and the parameter update's ||p_mesh - p|| / ||p - p0||
+# over all leaves (Adam's update is nearly the sign of each gradient entry,
+# so a gradient entry the two steps round to other signs moves by 2 lr: a
+# max |delta| does not tell a fault from rounding, the update's norm does).
+# The limits sit between the readings on the H100 (PERF.md): the sound
+# step read loss 0 and update 2.7e-2 (each slice rounds its weight gradients
+# to bf16 on its own, and Adam turns an entry whose slices nearly cancel to
+# either sign); the slices summed read loss 3.0 (update 2.7e-2: Adam does not
+# see a scale), one slice dropped loss 0.25 and update 0.75
+SHARD = {"mesh": (4, 2), "batch": 4, "seq_check": 1024, "seq": 4096, "steps": 3, "lr": 1e-4}
+SHARD_TOL = {"loss": 1e-3, "update": 0.1}
+# (m3) perf_iter's three LM cells on the 16 x 16 production mesh of the meta
+# device, and (t1)'s own configuration (2 layers, b 1 x seq 4096) on one card
+SHARD_CELLS = (("qwen2-72b", "train_4k"), ("deepseek-v2-lite-16b", "prefill_32k"),
+               ("qwen1.5-32b", "decode_32k"))
 
 
 def log(*args):
@@ -941,7 +981,7 @@ class _StepClock:
         from repro_torch.optim import spectral_adam as SA
         from repro_torch.train import loop
 
-        self.torch, self.marks = torch, []
+        self.torch, self.loop, self.marks = torch, loop, []
         self.patches = [(loop, "loss_and_grads"), (loop, "adamw_update"),
                         (loop, "spectral_adam_update"), (SA, "spectral_update_basis_grouped"),
                         (SA, "_refresh")]
@@ -2240,6 +2280,277 @@ def _serve_g4_family(arch, fault_name, dev, card):
     return {"tokens_equal": {"greedy": toks}, "logits_rel": rel, "planted": fault}
 
 
+class _MeshClock(_StepClock):
+    """``_StepClock`` on a mesh training step: CUDA events around the slices'
+    forward and backward with their average (``loop.mesh_loss_and_grads``)
+    and the optimizer (``loop.adamw_update``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.patches = [(self.loop, "mesh_loss_and_grads"), (self.loop, "adamw_update")]
+        self.saved = [getattr(m, n) for m, n in self.patches]
+
+    def split(self) -> list[dict]:
+        """Per step: the slices' fwd+bwd, AdamW, and the step."""
+        self.torch.cuda.synchronize()
+        steps = []
+        for (n0, a0, a1), (n1, b0, b1) in zip(self.marks[::2], self.marks[1::2]):
+            require(n0 == "mesh_loss_and_grads" and n1 == "adamw_update",
+                    f"(m1) unexpected pieces of a mesh step: {n0}, {n1}")
+            steps.append({"fwd_bwd_ms": a0.elapsed_time(a1), "optimizer_ms": b0.elapsed_time(b1),
+                          "step_ms": a0.elapsed_time(b1)})
+        return steps
+
+
+def _update_rel(got, want, start) -> float:
+    """||got - want|| / ||want - start|| over all floating leaves: how far a
+    step's parameter update parts from another's, over the update's size."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+
+    num = den = 0.0
+    for g, w, s0 in zip(tree_leaves(got), tree_leaves(want), tree_leaves(start)):
+        if isinstance(w, torch.Tensor) and w.is_floating_point():
+            num += float(torch.sum(torch.square((g - w).double())))
+            den += float(torch.sum(torch.square((w - s0).double())))
+    return (num / den) ** 0.5 if den else float("inf")
+
+
+def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
+    """Phase (m): the model side of sharding and the launch tier on the card.
+    (m1) the mesh step against the mesh-less one with planted faults, then
+    ``train(mesh=)`` at (t1)'s widths; (m2) ``reshard`` onto ``plan_mesh()``;
+    (m3) the dry-run of perf_iter's LM cells on the meta device and the
+    compute term of (t1)'s configuration held under (t1)'s measured step;
+    (m4) ``perf_iter --svd`` on the card.  A-F launch 0 times.  Raises on any
+    failed check."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.dist import Mesh, make_host_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, perf_iter
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import loop
+    from repro_torch.train.elastic import plan_mesh, reshard
+
+    sz = dict(SHARD, **(sizes or {}))
+    work = ROOT / "build" / "chip_smoke_shard"
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    launches0 = dict(_build.LAUNCHES)
+    sync = torch.cuda.synchronize
+
+    def fresh():
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+
+    # -- (m1) the mesh step against the mesh-less step, then train(mesh=) --------
+    cfg = sz.get("cfg") or configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    api = build_model(cfg)
+    mesh = make_host_mesh(*sz["mesh"], device=dev)
+    opt = OptimizerConfig(lr=sz["lr"], warmup_steps=0, total_steps=100)
+    params0 = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    state0 = adamw_init(params0)
+    batch = batch_for_step(0, 0, batch=sz["batch"], seq=sz["seq_check"], vocab=cfg.vocab_size,
+                           device=dev)
+
+    def one(step_mesh):
+        p, _, loss, _ = loop.train_step(api, opt, params0, state0, batch, 0, spectral=False,
+                                        mesh=step_mesh)
+        sync()
+        return p, float(loss)
+
+    p_ref, l_ref = one(None)
+    faults = {"sound": None,
+              "slices summed, not averaged": ("_average", lambda orig: lambda acc, n: acc),
+              "one slice dropped": ("_accumulate", None)}
+    check = {}
+    for label, fault in faults.items():
+        saved = None
+        if fault is not None:
+            name, make = fault
+            saved = getattr(loop, name)
+            if make is None:                 # the last slice's sum left out
+                calls = {"n": 0}
+
+                def dropped(acc, x, home, orig=saved, calls=calls, n=sz["mesh"][0]):
+                    calls["n"] += 1      # a slice adds its loss, then its gradients
+                    return acc if calls["n"] > 2 * (n - 1) else orig(acc, x, home)
+
+                setattr(loop, name, dropped)
+            else:
+                setattr(loop, name, make(saved))
+        try:
+            p_mesh, l_mesh = one(mesh)
+        finally:
+            if saved is not None:
+                setattr(loop, name, saved)
+        row = {"loss": l_mesh, "loss_rel": abs(l_mesh - l_ref) / abs(l_ref),
+               "update_rel": _update_rel(p_mesh, p_ref, params0),
+               "params_max_abs": max(float((a - b).abs().max())
+                                     for a, b in zip(tree_leaves(p_mesh), tree_leaves(p_ref)))}
+        del p_mesh
+        check[label] = row
+        within = row["loss_rel"] <= SHARD_TOL["loss"] and row["update_rel"] <= SHARD_TOL["update"]
+        log(f"  (m1) {label}: mesh {sz['mesh']} step vs mesh-less at b{sz['batch']} x "
+            f"s{sz['seq_check']}: loss {l_mesh:.6f} vs {l_ref:.6f}, rel {row['loss_rel']:.2e} "
+            f"(limit {SHARD_TOL['loss']:g}); update rel {row['update_rel']:.2e} (limit "
+            f"{SHARD_TOL['update']:g}); params max |delta| {row['params_max_abs']:.2e} | {card}")
+        if fault is None:
+            require(within, "(m1) the mesh step differs from the mesh-less step beyond the limits")
+        else:
+            require(not within, f"(m1) the check passes a planted fault ({label})")
+    out["m1_check"] = check
+    host_params = tree_map(lambda x: x.cpu(), params0)
+    del p_ref, params0, state0, batch
+    fresh()
+
+    # train(mesh=) at batch 4 x seq 4096: ms a step, fwd+bwd share, peak, waits
+    run = RunConfig(model=cfg, optimizer=OptimizerConfig(warmup_steps=2, total_steps=100),
+                    steps=sz["steps"], log_every=1, checkpoint_every=0,
+                    checkpoint_dir=str(work / "m1"), seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with _MeshClock() as clock:
+        res = loop.train(run, batch_size=sz["batch"], seq_len=sz["seq"], device=dev, mesh=mesh)
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    split = clock.split()
+    losses = [v for _, v in res.losses]
+    require(len(losses) == sz["steps"] and all(v == v and abs(v) < 1e30 for v in losses),
+            f"(m1) train(mesh=) losses not finite: {losses}")
+    steady = split[1:] or split
+    step_ms = statistics.mean(st["step_ms"] for st in steady)
+    fb_ms = statistics.mean(st["fwd_bwd_ms"] for st in steady)
+    fresh()
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    holder = {"p": reshard(params, mesh), "s": adamw_init(params)}
+    del params
+
+    def mesh_step(step, holder=holder):
+        b = batch_for_step(0, step, batch=sz["batch"], seq=sz["seq"], vocab=cfg.vocab_size,
+                           device=dev)
+        holder["p"], holder["s"], _, _ = loop.train_step(api, run.optimizer, holder["p"],
+                                                         holder["s"], b, step, spectral=False,
+                                                         mesh=mesh)
+
+    mesh_step(0)
+    waits, where = count_syncs(lambda: mesh_step(1))
+    del holder, mesh_step
+    fresh()
+    # the mesh-less step at the same batch, to see whether it fits
+    try:
+        params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        b = batch_for_step(0, 0, batch=sz["batch"], seq=sz["seq"], vocab=cfg.vocab_size,
+                           device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        loop.train_step(api, run.optimizer, params, adamw_init(params), b, 0, spectral=False)
+        sync()
+        meshless = f"fits, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    except torch.cuda.OutOfMemoryError as e:
+        meshless = f"does not fit: {str(e).splitlines()[0][:160]}"
+    params = b = None
+    fresh()
+    out["m1_train"] = {"losses": losses, "steps": split, "step_ms": step_ms,
+                       "fwd_bwd_ms": fb_ms, "fwd_bwd_share": fb_ms / step_ms, "wall_s": wall,
+                       "peak_bytes": peak, "host_waits_a_step": waits, "waits_at": where,
+                       "meshless_same_batch": meshless}
+    log(f"  (m1) train(mesh={sz['mesh']}) b{sz['batch']} x s{sz['seq']}: losses "
+        f"{[round(v, 4) for v in losses]} | {step_ms:.1f} ms a step after the first (fwd+bwd "
+        f"{fb_ms:.1f} ms, {100 * fb_ms / step_ms:.1f} %) | peak {peak / 2**30:.2f} GiB | "
+        f"{waits} host waits a step {where or ''} | {card}")
+    for i, st in enumerate(split):
+        log(f"    step {i}: {st['step_ms']:.1f} ms = fwd+bwd of the slices {st['fwd_bwd_ms']:.1f} "
+            f"+ AdamW {st['optimizer_ms']:.1f}")
+    log(f"    the mesh-less step at b{sz['batch']} x s{sz['seq']}: {meshless}")
+    require(waits == 0, f"(m1) a mesh step that neither logs nor saves waited for the card "
+                        f"{waits} times: {where}")
+
+    # -- (m2) reshard a host tree onto plan_mesh() ---------------------------------
+    pmesh = plan_mesh(device=dev)
+    sync()
+    t0 = time.perf_counter()
+    placed = reshard(host_params, pmesh)
+    sync()
+    m2_s = time.perf_counter() - t0
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    equal = all(a.dtype == b.dtype and a.device.type == dev.type and torch.equal(
+                a.cpu().view(ints[a.element_size()]), b.view(ints[b.element_size()]))
+                for a, b in zip(tree_leaves(placed), tree_leaves(host_params)))
+    n_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(host_params))
+    out["m2"] = {"mesh": pmesh.shape, "seconds": m2_s, "bytes": n_bytes, "equal": equal}
+    log(f"  (m2) reshard of (m1)'s {n_bytes / 2**30:.2f} GiB host tree onto plan_mesh() "
+        f"{pmesh.shape}: {m2_s:.3f} s, {'equal to the bit' if equal else 'NOT equal'} | {card}")
+    require(equal, "(m2) reshard changed the parameters")
+    del placed, host_params
+    fresh()
+
+    # -- (m3) the dry-run on the meta device -----------------------------------------
+    m3 = {}
+    for arch, shape in sz.get("lm_cells", SHARD_CELLS):
+        r = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=work / "dryrun")
+        rt = r["roofline"]
+        m3[f"{arch}/{shape}"] = {k: rt[k] for k in ("t_compute_s", "t_memory_s",
+                                                    "t_collective_s")}
+        m3[f"{arch}/{shape}"].update(useful=r["useful_flops_ratio"], counted_s=r["compile_s"])
+        log(f"  (m3) {arch} {shape} on 16x16 (counts against data-sheet peaks): compute "
+            f"{rt['t_compute_s'] * 1e3:.1f} ms, memory {rt['t_memory_s'] * 1e3:.1f} ms, "
+            f"collective {rt['t_collective_s'] * 1e3:.1f} ms, useful FLOPs "
+            f"{r['useful_flops_ratio']:.3f} (counted in {r['compile_s']} s)")
+    import numpy as np
+
+    one_card = Mesh(np.full((1, 1), torch.device("meta"), dtype=object), ("data", "model"))
+    t1_cfg = sz.get("t1_cfg") or configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    t1_shape = ShapeConfig("t1", sz.get("t1_seq", TRAIN_SEQ), 1, "train")
+    c = dryrun.lower_cell(t1_cfg, t1_shape, one_card, multi_pod=False, shape_name="t1")
+    compute_ms, memory_ms = c.flops / PEAK_FLOPS * 1e3, c.bytes / HBM_BW * 1e3
+    m3["t1"] = {"flops": c.flops, "bytes": c.bytes, "compute_ms": compute_ms,
+                "memory_ms": memory_ms, "t1_step_ms": t1_step_ms,
+                "compute_share": compute_ms / t1_step_ms}
+    log(f"  (m3) (t1)'s configuration on one card: {c.flops:.4e} FLOPs (products) -> compute "
+        f"term {compute_ms:.2f} ms at 989 TFLOP/s; {c.bytes:.4e} bytes (unfused) -> "
+        f"{memory_ms:.2f} ms at 3.35 TB/s; (t1)'s measured AdamW step {t1_step_ms:.1f} ms: the "
+        f"count is {100 * compute_ms / t1_step_ms:.1f} % of it | {card}")
+    require(compute_ms <= t1_step_ms, f"(m3) the compute term of (t1), {compute_ms:.2f} ms, "
+                                      f"exceeds its measured step, {t1_step_ms:.2f} ms")
+    out["m3"] = m3
+
+    # -- (m4) perf_iter --svd on the card ------------------------------------------------
+    m4 = []
+    for rec in perf_iter.run_svd_cells(work / "dryrun", device=dev, cells=sz.get("svd_cells")):
+        rt = rec["roofline"]
+        m4.append({"cell": f"{rec['arch']}/{rec['shape']}", "flops": rt["flops_per_device"],
+                   "bytes": rt["bytes_per_device"], "useful": rec["useful_flops_ratio"],
+                   "seconds": rec["seconds"]})
+        log(f"  (m4) {rec['arch']} {rec['shape']}: {rt['flops_per_device']:.4e} FLOPs "
+            f"(products), {rt['bytes_per_device']:.4e} bytes (unfused), useful "
+            f"{rec['useful_flops_ratio']:.3f}, {rec['seconds'] * 1e3:.2f} ms a flush | {card}")
+    out["m4"] = m4
+
+    launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+    out["launches_a_f"] = launched
+    log(f"  (m) launches of A-F over the phase: {launched}")
+    require(not any(launched.values()), f"(m) a kernel of A-F launched on the path: {launched}")
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase (m): {out['seconds']:.1f} s | {card}")
+    return out
+
+
 def main() -> int:
     # phase (t3) runs with deterministic algorithms, and cuBLAS reads this
     # before the card's first product
@@ -2287,12 +2598,19 @@ def main() -> int:
     # empty (granite-34b's 2 layers peak at ~50 GiB; the later phases' states
     # would not leave room for it) ---------------------------------------------
     log("phase (t): training")
-    log("train " + json.dumps(train_phase(dev, card)))
+    train_out = train_phase(dev, card)
+    log("train " + json.dumps(train_out))
 
     # -- phase (g), token serving: after (t), while the card's memory is still
     # free of the later phases' states (g2's zamba2-7b holds 27 GB of params)
     log("phase (g): token serving")
     log("serve " + json.dumps(serve_phase(dev, card)))
+
+    # -- phase (m), sharding and the launch tier: after (g), while the card's
+    # memory is still free (the mesh step at (t1)'s widths peaks near (t1))
+    log("phase (m): sharding and the launch tier")
+    t1_step_ms = train_out["t1"]["adamw"]["mean_after_first"]["step_ms"]
+    log("shard " + json.dumps(shard_phase(dev, card, t1_step_ms)))
 
     rng = np.random.default_rng(0)
 

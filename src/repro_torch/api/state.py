@@ -21,7 +21,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["SvdState", "as_state", "generator_device", "like_container", "resolve_device"]
+__all__ = ["SHAPE_ONLY", "SvdState", "as_state", "generator_device", "init_generator",
+           "like_container", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -40,9 +41,39 @@ def generator_device(gen: torch.Generator, device) -> torch.device:
     dev = resolve_device(device)
     gd = gen.device
     if gd.type != dev.type or (dev.index is not None and gd.index not in (None, dev.index)):
+        if dev.type == "meta":      # torch builds no generator on the meta device
+            raise ValueError(f"the generator draws on {gd} but device={device!r}; a shape-only "
+                             f"init draws nothing: pass gen=None with device='meta'")
         raise ValueError(f"the generator draws on {gd} but device={device!r}; build it there "
                          f"(torch.Generator(device={str(dev)!r})) or pass device={str(gd)!r}")
     return dev
+
+
+class _ShapeOnly:
+    """The generator of a shape-only init: draws nothing, on the meta device."""
+
+    device = torch.device("meta")
+
+    def __repr__(self):
+        return "SHAPE_ONLY"
+
+
+#: What a model init draws from when it builds shapes only (``gen=None`` with
+#: ``device="meta"``): every leaf an empty meta tensor of the leaf's shape and
+#: dtype, the port's ``jax.eval_shape(api.init, key)``.
+SHAPE_ONLY = _ShapeOnly()
+
+
+def init_generator(gen, device) -> tuple:
+    """``(gen, device)`` of a model init: ``gen=None`` with ``device="meta"``
+    builds shapes only (``SHAPE_ONLY``); otherwise ``gen`` must draw on
+    ``device`` (``generator_device``)."""
+    if gen is None:
+        if torch.device(device).type != "meta":
+            raise ValueError(f"an init on device={device!r} draws from a generator; gen=None "
+                             f"builds shapes only, on device='meta'")
+        gen = SHAPE_ONLY
+    return gen, generator_device(gen, device)
 
 
 def _tensor(x, device, dtype=None):

@@ -4,9 +4,11 @@ Counterpart of ``repro.dist``:
 
 * ``dist.mesh`` — ``Mesh``, a named grid of devices in one process (the
   counterpart of ``jax.sharding.Mesh``), and ``make_host_mesh``;
-* ``dist.sharding`` — the batch-axis rules (``batch_pspecs``,
-  ``batch_sharding``, ``batch_pad``) the engine and the service spread a
-  flush by; the parameter and cache rules wait for the models (ROADMAP A9);
+* ``dist.sharding`` — the rulebook of specs: parameters (``param_pspecs``),
+  decode caches (``cache_pspecs``), batches (``batch_pspecs``), the ZeRO-3
+  cast at use (``gather_for_compute``), and the batch-axis helpers
+  (``batch_sharding``, ``batch_pad``) the engine and the service spread a
+  flush by;
 * ``dist.collectives`` — the compressed all-reduce's collectives on a
   ``torch.distributed`` group (factor means and sums, the truncated-SVD
   factor all-gather) and their wire accounting;
@@ -30,6 +32,9 @@ from repro_torch.dist.sharding import (
     batch_pad,
     batch_pspecs,
     batch_sharding,
+    cache_pspecs,
+    gather_for_compute,
+    param_pspecs,
 )
 
 __all__ = [
@@ -40,15 +45,18 @@ __all__ = [
     "batch_pad",
     "batch_pspecs",
     "batch_sharding",
+    "cache_pspecs",
     "collectives",
     "distributed_merge",
     "factor_wire_bytes",
+    "gather_for_compute",
     "make_host_mesh",
     "merge",
     "merge_append",
     "merge_pair",
     "merge_tree",
     "mesh",
+    "param_pspecs",
     "pmean_factor",
     "psum_factor",
     "sharding",

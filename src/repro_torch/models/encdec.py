@@ -31,7 +31,7 @@ import math
 import torch
 
 from repro_torch._tree import tree_map
-from repro_torch.api.state import generator_device
+from repro_torch.api.state import init_generator
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import _sdpa  # shared scaled-dot-product core
 from repro_torch.models.layers import (
@@ -102,11 +102,12 @@ def _dec_layer_init(gen, cfg, dtype, lead):
     }
 
 
-def encdec_init(gen: torch.Generator, cfg, *, device="cuda") -> dict:
+def encdec_init(gen: torch.Generator | None, cfg, *, device="cuda") -> dict:
     """Random parameters on ``device`` (the card by default; ``gen`` must draw
-    there) in the reference's layout and scales (not its bits: carry those
-    over with ``convert.params_from_reference``)."""
-    dev = generator_device(gen, device)
+    there; ``gen=None`` with ``device="meta"`` builds shapes only) in the
+    reference's layout and scales (not its bits: carry those over with
+    ``convert.params_from_reference``)."""
+    gen, dev = init_generator(gen, device)
     dtype = as_dtype(cfg.param_dtype)
     lead = (cfg.n_layers,)
     return {

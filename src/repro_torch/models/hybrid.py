@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._tree import tree_map
-from repro_torch.api.state import generator_device
+from repro_torch.api.state import init_generator
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -63,11 +63,12 @@ def _mamba_layers_init(gen, cfg, dtype, lead):
             "ssm": ssm_mod.ssm_init(gen, cfg, dtype, lead)}
 
 
-def hybrid_init(gen: torch.Generator, cfg, *, device="cuda") -> dict:
+def hybrid_init(gen: torch.Generator | None, cfg, *, device="cuda") -> dict:
     """Random parameters on ``device`` (the card by default; ``gen`` must draw
-    there) in the reference's layout and scales (not its bits: carry those
-    over with ``convert.params_from_reference``)."""
-    generator_device(gen, device)
+    there; ``gen=None`` with ``device="meta"`` builds shapes only) in the
+    reference's layout and scales (not its bits: carry those over with
+    ``convert.params_from_reference``)."""
+    gen, _ = init_generator(gen, device)
     dtype = as_dtype(cfg.param_dtype)
     n_groups, k, tail = hybrid_layout(cfg)
     dev = gen.device

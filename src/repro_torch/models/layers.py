@@ -47,7 +47,10 @@ def as_dtype(name) -> torch.dtype:
 
 
 def uniform_init(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
-    """Uniform in ``[-scale, scale)`` on the generator's device."""
+    """Uniform in ``[-scale, scale)`` on the generator's device; on the meta
+    device (``api.state.SHAPE_ONLY``) an empty tensor, nothing drawn."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=as_dtype(dtype), device="meta")
     x = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (x * (2 * scale) - scale).to(as_dtype(dtype))
 

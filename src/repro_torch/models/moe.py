@@ -27,6 +27,19 @@ from repro_torch.models.layers import as_dtype, bdot, mlp_apply, mlp_init, unifo
 __all__ = ["moe_init", "moe_apply", "moe_aux_loss"]
 
 
+def _constrain(x, spec, cfg):
+    """The reference's expert-parallel sharding annotation
+    (``cfg.moe_shard_constraints``): the placement ``spec`` names for ``x``
+    on a model mesh.  A tensor of the port is whole on its device, so, as the
+    reference's constraint outside a mesh context, it returns ``x`` itself,
+    its values unchanged; only the spec's rank is checked."""
+    if not cfg.moe_shard_constraints:
+        return x
+    if len(spec) != x.dim():
+        raise ValueError(f"spec {spec} does not fit a tensor of shape {tuple(x.shape)}")
+    return x
+
+
 def moe_init(gen, cfg, dtype, lead=()):
     """MoE weights; ``lead`` prepends axes (the stacked layers).  The router is
     float32 whatever ``dtype``."""
@@ -67,8 +80,8 @@ def _route(xg, router, m):
 
 def moe_apply(x, p, cfg):
     """``x`` (b, s, d) -> (b, s, d).  Router in float32; experts in the
-    compute dtype.  ``_constrain`` (the reference's expert-parallel sharding
-    annotation) is a no-op here: the port has no model mesh (ROADMAP A9c)."""
+    compute dtype.  The dispatch, the experts' inputs and their outputs pass
+    ``_constrain`` in the reference's shapes, (g, s, E, C) and (g, E, C, d)."""
     b, s, d = x.shape
     m = cfg.moe
     cd = as_dtype(cfg.compute_dtype)
@@ -98,17 +111,20 @@ def moe_apply(x, p, cfg):
     oh_cd = onehot.to(cd)
     # einsum("gske,gskc->gsec"): (g*s, E, k) @ (g*s, k, C)
     disp = bdot(oh_cd.reshape(g * gs, k, e_n).mT, cap_oh.reshape(g * gs, k, capacity), cd)
-    disp = disp.to(cd).reshape(g, gs, e_n * capacity)
+    disp = _constrain(disp.to(cd).reshape(g, gs, e_n, capacity), ("data", None, "model", None),
+                      cfg).reshape(g, gs, e_n * capacity)
     # einsum("gsec,gsd->gecd"): (g, E*C, s) @ (g, s, d)
     x_exp = bdot(disp.mT, xg.to(cd), cd).to(cd)                        # (g, E*C, d)
-    x_exp = x_exp.reshape(g, e_n, capacity, d).permute(1, 0, 2, 3).reshape(e_n, g * capacity, d)
+    x_exp = _constrain(x_exp.reshape(g, e_n, capacity, d), ("data", "model", None, None), cfg)
+    x_exp = x_exp.permute(1, 0, 2, 3).reshape(e_n, g * capacity, d)
 
     # --- expert FFNs, batched over E
     g_act = bdot(x_exp, p["wg"], cd)                                   # (E, g*C, f)
     u_act = bdot(x_exp, p["wu"], cd)
     h = (F.silu(g_act) * u_act).to(cd)
     y_exp = bdot(h, p["wd"], cd).to(cd)                                 # (E, g*C, d)
-    y_exp = y_exp.reshape(e_n, g, capacity, d).permute(1, 0, 2, 3).reshape(g, e_n * capacity, d)
+    y_exp = _constrain(y_exp.reshape(e_n, g, capacity, d).permute(1, 0, 2, 3),
+                       ("data", "model", None, None), cfg).reshape(g, e_n * capacity, d)
 
     # --- combine (dispatch weighted by gates): einsum("gske,gskc,gsk->gsec")
     gated = oh_cd * gate_vals.to(cd)[..., None]                         # (g, s, k, E)

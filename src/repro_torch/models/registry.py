@@ -8,7 +8,10 @@ Counterpart of ``repro.models.registry``.  ``build_model(cfg)`` returns a
   decode_step(params, cache, token, pos) — decode shapes
 
 ``input_specs(shape)`` gives ``TensorSpec`` stand-ins (shape and dtype, no
-allocation) for every input of the entry point.  Every family is ported: the
+allocation) for every input of the entry point, and ``init(None,
+device="meta")`` the parameter tree as empty meta tensors (shapes and dtypes,
+nothing drawn or allocated: the reference's ``jax.eval_shape(api.init,
+key)``).  Every family is ported: the
 decoder (dense, VLM, MoE and MLA configs), the hybrid, RWKV and the
 encoder-decoder.  ``prefill``'s keyword is each family's own, as in the
 reference: ``max_len=`` for the decoder and the hybrid, ``max_dec_len=``
@@ -40,7 +43,7 @@ class TensorSpec(NamedTuple):
 
 class ModelApi(NamedTuple):
     cfg: ModelConfig
-    init: Callable[..., Any]  # (gen, *, device="cuda") -> params
+    init: Callable[..., Any]  # (gen=None, *, device="cuda") -> params
     train_loss: Callable[..., torch.Tensor]
     prefill: Callable[..., tuple]
     decode_step: Callable[..., tuple]
@@ -79,7 +82,7 @@ def _decoder_api(cfg: ModelConfig) -> ModelApi:
 
     return ModelApi(
         cfg=cfg,
-        init=lambda gen, *, device="cuda": transformer.decoder_init(gen, cfg, device=device),
+        init=lambda gen=None, *, device="cuda": transformer.decoder_init(gen, cfg, device=device),
         train_loss=lambda params, batch: transformer.decoder_train_loss(params, batch, cfg),
         prefill=lambda params, batch, **kw: transformer.decoder_prefill(params, batch, cfg, **kw),
         decode_step=lambda params, cache, token, pos: transformer.decoder_decode_step(
@@ -102,7 +105,7 @@ def _hybrid_api(cfg: ModelConfig) -> ModelApi:
 
     return ModelApi(
         cfg=cfg,
-        init=lambda gen, *, device="cuda": hybrid.hybrid_init(gen, cfg, device=device),
+        init=lambda gen=None, *, device="cuda": hybrid.hybrid_init(gen, cfg, device=device),
         train_loss=lambda params, batch: hybrid.hybrid_train_loss(params, batch, cfg),
         prefill=lambda params, batch, **kw: hybrid.hybrid_prefill(params, batch, cfg, **kw),
         decode_step=lambda params, cache, token, pos: hybrid.hybrid_decode_step(
@@ -125,7 +128,7 @@ def _rwkv_api(cfg: ModelConfig) -> ModelApi:
 
     return ModelApi(
         cfg=cfg,
-        init=lambda gen, *, device="cuda": rwkv_model.rwkv_model_init(gen, cfg, device=device),
+        init=lambda gen=None, *, device="cuda": rwkv_model.rwkv_model_init(gen, cfg, device=device),
         train_loss=lambda params, batch: rwkv_model.rwkv_train_loss(params, batch, cfg),
         prefill=lambda params, batch: rwkv_model.rwkv_prefill(params, batch, cfg),
         decode_step=lambda params, cache, token, pos: rwkv_model.rwkv_decode_step(
@@ -149,7 +152,7 @@ def _encdec_api(cfg: ModelConfig) -> ModelApi:
 
     return ModelApi(
         cfg=cfg,
-        init=lambda gen, *, device="cuda": encdec.encdec_init(gen, cfg, device=device),
+        init=lambda gen=None, *, device="cuda": encdec.encdec_init(gen, cfg, device=device),
         train_loss=lambda params, batch: encdec.encdec_train_loss(params, batch, cfg),
         prefill=lambda params, batch, **kw: encdec.encdec_prefill(params, batch, cfg, **kw),
         decode_step=lambda params, cache, token, pos: encdec.encdec_decode_step(

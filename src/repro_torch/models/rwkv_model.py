@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.api.state import generator_device
+from repro_torch.api.state import init_generator
 from repro_torch.models import rwkv as rw
 from repro_torch.models.layers import (
     as_dtype,
@@ -43,11 +43,12 @@ __all__ = [
 ]
 
 
-def rwkv_model_init(gen: torch.Generator, cfg, *, device="cuda") -> dict:
+def rwkv_model_init(gen: torch.Generator | None, cfg, *, device="cuda") -> dict:
     """Random parameters on ``device`` (the card by default; ``gen`` must draw
-    there) in the reference's layout and scales (not its bits: carry those
-    over with ``convert.params_from_reference``)."""
-    dev = generator_device(gen, device)
+    there; ``gen=None`` with ``device="meta"`` builds shapes only) in the
+    reference's layout and scales (not its bits: carry those over with
+    ``convert.params_from_reference``)."""
+    gen, dev = init_generator(gen, device)
     dtype = as_dtype(cfg.param_dtype)
     n = cfg.n_layers
     return {

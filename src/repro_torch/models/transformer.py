@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch._tree import tree_map
-from repro_torch.api.state import generator_device
+from repro_torch.api.state import init_generator
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -146,12 +146,12 @@ def _layer_init(gen, cfg, dtype, n):
     return p
 
 
-def decoder_init(gen: torch.Generator, cfg, *, device="cuda") -> dict:
+def decoder_init(gen: torch.Generator | None, cfg, *, device="cuda") -> dict:
     """Random parameters on ``device`` (the card by default; ``gen`` must draw
-    there), in the reference's layout and scales.  ``torch.Generator`` draws,
-    so not the reference's bits: carry those over with
-    ``convert.params_from_reference``."""
-    generator_device(gen, device)
+    there; ``gen=None`` with ``device="meta"`` builds shapes only), in the
+    reference's layout and scales.  ``torch.Generator`` draws, so not the
+    reference's bits: carry those over with ``convert.params_from_reference``."""
+    gen, _ = init_generator(gen, device)
     dtype = as_dtype(cfg.param_dtype)
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),

@@ -6,18 +6,19 @@ full host arrays, so they are independent of the mesh and of the shard
 count.  On restart ``plan_mesh`` takes the largest ``(data, model)``
 factorisation of the cards present and ``plan_shard_count`` sizes a restored
 fleet (``SvdFleet.restore(num_shards="auto")``) to one shard per device;
-``FleetSnapshot.regrouped`` then moves every stream's leaves, bitwise.
-``reshard`` (placing a parameter tree on the new mesh) needs the models'
-parameter specs and waits for them (ROADMAP A9).
+``FleetSnapshot.regrouped`` then moves every stream's leaves, bitwise, and
+``reshard`` places a restored parameter tree on the new mesh.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.dist.mesh import Mesh, make_host_mesh
+from repro_torch._tree import flatten_up_to, tree_flatten_with_names, tree_unflatten
+from repro_torch.dist import sharding as sh
+from repro_torch.dist.mesh import Mesh, check_mesh, make_host_mesh
 
-__all__ = ["largest_factorization", "plan_mesh", "plan_shard_count"]
+__all__ = ["largest_factorization", "plan_mesh", "plan_shard_count", "reshard"]
 
 
 def largest_factorization(n: int, max_model: int = 16) -> tuple[int, int]:
@@ -48,3 +49,28 @@ def plan_shard_count(max_shards: int | None = None, *, devices=None) -> int:
     if n < 1:
         raise ValueError("no live devices to plan shards for")
     return min(n, max_shards) if max_shards is not None else n
+
+
+def reshard(tree, mesh: Mesh):
+    """Place a host parameter tree on ``mesh`` by the parameter rules
+    (``dist.sharding.param_pspecs``): every axis a spec shards must divide
+    into that mesh's axis sizes, else ``ValueError``.  A leaf of the port is
+    whole on its device, so each leaf goes to the mesh's first device, its
+    values unchanged to the bit; on one card every entry of the mesh is that
+    card."""
+    home = check_mesh(mesh).devices.flat[0]
+    sizes = mesh.shape
+    names, leaves = tree_flatten_with_names(tree)
+    specs = flatten_up_to(tree, sh.param_pspecs(tree))
+    for name, leaf, spec in zip(names, leaves, specs):
+        for i, (dim, ax) in enumerate(zip(leaf.shape, spec)):
+            if ax is None:
+                continue
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                mesh.axis_size(a)
+            k = sh.spec_divisor(ax, sizes)
+            if dim % k:       # the reference's device_put raises the same
+                raise ValueError(f"leaf {name}: spec {spec} implies that array axis {i} is "
+                                 f"partitioned {k} times on mesh {sizes}, but does not evenly "
+                                 f"divide the dimension size {dim}")
+    return tree_unflatten(tree, [x.to(home) for x in leaves])

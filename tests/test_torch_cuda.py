@@ -1292,3 +1292,54 @@ def test_threefry_bits_on_the_card_equal_the_cpu(cuda_device):
                            E.random_bits(key, shape, "cpu"))
     assert torch.equal(E.gumbel(key, (8, 4096), cuda_device).cpu().isfinite(),
                        torch.ones(8, 4096, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "deepseek-moe-16b"])
+def test_mesh_train_step_on_the_card_matches_the_meshless_step(cuda_device, arch):
+    """The (4, 2) mesh step of chip_smoke (m1) at a smoke config: the batch
+    split over four entries of the card, against the mesh-less step on the
+    same batch from one init (f32, TF32 off): the loss and the parameters at
+    the reference's own limits for a sharded step (1e-5, 1e-4)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.dist import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import loop
+
+    cfg = configs.get_smoke(arch)
+    if cfg.moe is not None:      # 4 groups of 64 tokens, one whole group a slice
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, group_size=64))
+    sapi = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=100)
+    params = sapi.init(torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    state = adamw_init(params)
+    batch = batch_for_step(0, 0, batch=8, seq=32, vocab=cfg.vocab_size, device=cuda_device)
+    mesh = make_host_mesh(4, 2, device=cuda_device)
+    assert {d.type for d in mesh.devices.flat} == {"cuda"}
+    p_ref, _, l_ref, _ = loop.train_step(sapi, opt, params, state, batch, 0, spectral=False)
+    p_mesh, _, l_mesh, _ = loop.train_step(sapi, opt, params, state, batch, 0, spectral=False,
+                                           mesh=mesh)
+    assert abs(float(l_mesh) - float(l_ref)) < 1e-5
+    for a, b in zip(_leaves_of(p_mesh), _leaves_of(p_ref)):
+        assert a.is_cuda and float((a - b).abs().max()) < 1e-4
+
+
+def test_reshard_onto_a_card_mesh_is_bitwise(cuda_device):
+    from repro_torch import configs
+    from repro_torch.dist import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.elastic import plan_mesh, reshard
+
+    sapi = build_model(configs.get_smoke("qwen1.5-32b"))
+    host = sapi.init(torch.Generator().manual_seed(0), device="cpu")
+    for mesh in (plan_mesh(device=cuda_device), make_host_mesh(4, 2, device=cuda_device)):
+        placed = reshard(host, mesh)
+        for a, b in zip(_leaves_of(placed), _leaves_of(host)):
+            assert a.is_cuda and a.dtype == b.dtype
+            assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    with pytest.raises(ValueError, match="does not evenly divide"):
+        reshard(host, make_host_mesh(3, 1, device=cuda_device))

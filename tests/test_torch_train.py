@@ -187,7 +187,7 @@ def test_log_every_straggler_hook_and_refusals(tmp_path):
     assert not (tmp_path / "c").exists()                     # checkpoint_every=0: no save
     first = res.losses[0][1]
     assert np.isfinite(first) and abs(first - np.log(run.model.vocab_size)) < 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(TypeError, match="expected a repro_torch.dist.Mesh"):
         PLOOP.train(run, batch_size=1, seq_len=8, device="cpu", mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
