@@ -154,8 +154,17 @@ result) when it fails:
    16 meta mesh (three terms, useful FLOPs), and the compute term of (t1)'s
    own configuration on one card held under (t1)'s measured step; (m4)
    ``perf_iter --svd``'s cells on the card (FLOPs, bytes, useful ratio,
-   seconds); A-F's launches over the phase (0: a check).  Each phase prints
-   its seconds.
+   seconds); A-F's launches over the phase (0: a check).
+(x) the port's four examples (``examples/*_torch.py``), each through its
+   ``main`` at the reference's defaults, last: the quickstart (E), the
+   streaming SVD's five parts (B), compressed DP in a gloo world of 8 ranks
+   on the card (B, counted in the ranks) and train_lm at repro-tiny, then
+   its repro-100m configuration (through the example's ``run_config`` and
+   ``train``) for 20 steps resumed to 30 and held to the bit against an
+   unbroken run; each example's self-checks raise, its seconds, figures and
+   A-F's launches are printed and held to its route (``X_ROUTES``).  The
+   ``kernels`` line's launches include phase (x)'s.  Each phase prints its
+   seconds.
 
 
 The last lines are the ``kernels`` JSON line, the card (nvidia-smi), and
@@ -547,6 +556,10 @@ SHARD_TOL = {"loss": 1e-3, "update": 0.1}
 # device, and (t1)'s own configuration (2 layers, b 1 x seq 4096) on one card
 SHARD_CELLS = (("qwen2-72b", "train_4k"), ("deepseek-v2-lite-16b", "prefill_32k"),
                ("qwen1.5-32b", "decode_32k"))
+# (m4) perf_iter's fleet cells up to this depth: the B8 m64 n96 r8 k32 cell
+# (3.2-7.2 s a flush on the phase chain, counted and then timed, no kernel of
+# A-F) is left out to make room for phase (x); its k8 twin keeps the geometry
+M4_MAX_DEPTH = 8
 
 
 def log(*args):
@@ -2531,7 +2544,10 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
 
     # -- (m4) perf_iter --svd on the card ------------------------------------------------
     m4 = []
-    for rec in perf_iter.run_svd_cells(work / "dryrun", device=dev, cells=sz.get("svd_cells")):
+    cells = sz.get("svd_cells") or (
+        [(m, n, r, b, None) for m, n, r, b in perf_iter.SVD_CELLS]
+        + [c for c in perf_iter.FLEET_CELLS if c[4] <= M4_MAX_DEPTH])
+    for rec in perf_iter.run_svd_cells(work / "dryrun", device=dev, cells=cells):
         rt = rec["roofline"]
         m4.append({"cell": f"{rec['arch']}/{rec['shape']}", "flops": rt["flops_per_device"],
                    "bytes": rt["bytes_per_device"], "useful": rec["useful_flops_ratio"],
@@ -2548,6 +2564,151 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase (m): {out['seconds']:.1f} s | {card}")
+    return out
+
+
+# phase (x): the port's four examples on the card at the reference's defaults,
+# through their main(argv).  The kernels each example's route reaches (PERF.md
+# section 6): quickstart E (method="fmm", n = 300 >= FMM_MIN_N; 8 launches a
+# full update); streaming B (auto: fused at
+# (600, 400, r 12) and on the structured demo's rank-1 steps; the service
+# parts run direct); compressed_dp B (the trackers, auto at (64, 128, r 8),
+# in the ranks' processes); train_lm none.  Beside its default run through
+# main, train_lm's repro-100m configuration (the reference's "assignment
+# driver" width) runs through the example's run_config and train.train for
+# X_TRAIN["steps"] steps, resumed to X_TRAIN["resume_to"] and held to the bit
+# against an unbroken run under deterministic algorithms; its first loss within
+# TRAIN_FIRST_LOSS_SLACK of ln(vocab), every loss finite.  Not through main:
+# main's own check (the last logged loss below the first) needs a longer run
+# at that width than a smoke test gives it (on the H100, 100 steps at this
+# schedule left the loss at 10.45-10.73 from 10.51 at step 0).
+X_TRAIN = {"steps": 20, "resume_to": 30}
+X_ROUTES = {"quickstart": ("nearfield",), "streaming": ("fused_update_truncated",),
+            "compressed_dp": ("fused_update_truncated",), "train_lm": ()}
+
+
+def examples_phase(dev, card: str) -> dict:
+    """Phase (x): each example's ``main`` on the card; its self-checks raise
+    on failure (nothing is caught).  Launch counts of A-F are zeroed before
+    each example and read after it (compressed_dp's from its ranks), and
+    held to ``X_ROUTES``: each listed kernel launched, every other one not.
+    E launches on the quickstart whether or not its FMM plans overflowed (an
+    overflowed member's product is replaced after the FMM's, as the
+    reference's ``lax.cond`` picks); the count of overflowed plans is
+    printed."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import loop
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import compressed_dp_torch
+    import quickstart_torch
+    import streaming_svd_torch
+    import train_lm_torch
+
+    t_phase = time.perf_counter()
+    out, launches_all = {}, {k: 0 for k in _build.LAUNCHES}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        fig = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = dict(_build.LAUNCHES)
+        if label == "compressed_dp":
+            require(not any(launched.values()), f"(x) the parent of compressed_dp launched {launched}")
+            launched = fig["launches"]
+        for k, v in launched.items():
+            launches_all[k] += v
+        return fig, seconds, launched
+
+    def held(label, launched, figures):
+        want = X_ROUTES[label]
+        for k, v in launched.items():
+            if k in want:
+                require(v > 0, f"(x) {label}: kernel {k} did not launch ({launched})")
+            elif k not in want:
+                require(v == 0, f"(x) {label}: kernel {k} launched {v} times off its route")
+        out[label] = {**figures, "launches": launched}
+        log(f"  (x) {label}: {figures['seconds']:.1f} s | " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in figures.items() if k != "seconds")
+            + f" | launches {launched} | {card}")
+
+    fig, sec, launched = run("quickstart", lambda: quickstart_torch.main([]))
+    held("quickstart", launched,
+         {"seconds": sec, "eq32_error": fig["eq32_error"], "orthogonality": fig["orthogonality"],
+          "sigma_max": fig["sigma_max"], "fmm_plans_overflowed": fig["fmm_plans_overflowed"]})
+
+    fig, sec, launched = run("streaming", lambda: streaming_svd_torch.main([]))
+    held("streaming", launched,
+         {"seconds": sec, "stream_s": fig["stream"]["seconds"],
+          "dominant_rel_dev": fig["stream"]["dominant_rel_dev"],
+          "max_rel_dev": fig["stream"]["max_rel_dev"], "service_rounds": fig["service"]["rounds"],
+          "structured_parity": fig["structured"]["parity"],
+          "deletion_parity": fig["deletion"]["parity"], "obs_spans": fig["obs"]["spans"],
+          "ortho_drift": fig["obs"]["ortho_drift"]})
+
+    fig, sec, launched = run("compressed_dp", lambda: compressed_dp_torch.main([]))
+    held("compressed_dp", launched,
+         {"seconds": sec, "loop_s": fig["loop_seconds"], "world": fig["world"],
+          "backend": fig["backend"], "dense_loss": fig["dense_loss"],
+          "compressed_loss": fig["compressed_loss"],
+          "wire_bytes": f"{fig['wire_bytes']['dense']} -> {fig['wire_bytes']['compressed']}"})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def train_lm():
+            tiny = train_lm_torch.main(["--ckpt-dir", f"{tmp}/tiny"])
+
+            def big(steps, where):
+                args = train_lm_torch.parse(["--scale", "100m", "--steps", str(steps),
+                                             "--ckpt-dir", f"{tmp}/{where}"])
+                return loop.train(train_lm_torch.run_config(args), batch_size=args.batch,
+                                  seq_len=args.seq, device=dev)
+
+            torch.use_deterministic_algorithms(True)
+            try:
+                first = big(X_TRAIN["steps"], "a")
+                resumed = big(X_TRAIN["resume_to"], "a")
+                whole = big(X_TRAIN["resume_to"], "b")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            vocab = train_lm_torch.model_for_scale("100m").vocab_size
+            losses = [v for res in (first, resumed, whole) for _, v in res.losses]
+            require(all(math.isfinite(v) for v in losses), "(x) train_lm 100m: a loss is not finite")
+            require(abs(first.losses[0][1] - math.log(vocab)) <= TRAIN_FIRST_LOSS_SLACK,
+                    f"(x) train_lm 100m: first loss {first.losses[0][1]} not within "
+                    f"{TRAIN_FIRST_LOSS_SLACK} of ln({vocab})")
+            (sa, la), (sb, lb) = CK.restore(f"{tmp}/a", None), CK.restore(f"{tmp}/b", None)
+            same = sa == sb == X_TRAIN["resume_to"] and len(la) == len(lb) and all(
+                a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+                for a, b in zip(la, lb))
+            require(resumed.resumed_from == X_TRAIN["steps"],
+                    f"(x) train_lm resumed from {resumed.resumed_from}")
+            require(same and resumed.losses == [x for x in whole.losses
+                                                if x[0] >= X_TRAIN["steps"]],
+                    "(x) train_lm: the resumed 100m run is not the unbroken one to the bit")
+            return {"tiny": tiny, "first": first, "resumed": resumed, "leaves": len(la)}
+
+        fig, sec, launched = run("train_lm", train_lm)
+    held("train_lm", launched,
+         {"seconds": sec, "tiny_loss": f"{fig['tiny']['first_loss']:.4f} -> "
+                                       f"{fig['tiny']['last_loss']:.4f}",
+          "100m_loss": f"{fig['first'].losses[0][1]:.4f} -> {fig['first'].losses[-1][1]:.4f}",
+          "100m_resumed_loss": f"{fig['resumed'].losses[0][1]:.4f} -> "
+                               f"{fig['resumed'].losses[-1][1]:.4f}",
+          "resume": f"from step {X_TRAIN['steps']} to {X_TRAIN['resume_to']}, equal to the bit "
+                    f"({fig['leaves']} leaves)"})
+    out["launches"] = launches_all
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase (x): {out['seconds']:.1f} s | {card}")
     return out
 
 
@@ -4336,6 +4497,12 @@ def main() -> int:
                                  "routes": route_rows, "drive_launches": drive_launches,
                                  "fmm_overflowed": fmm_overflows, "card": card}))
 
+    # -- phase (x), the examples: last, after every kernel has been checked -------
+    log("phase (x): the examples")
+    x_out = examples_phase(dev, card)
+    log("examples " + json.dumps(x_out, default=str))
+    x_launches = x_out["launches"]
+
     headline = {"C": ("float64", 16, 192), "A": ("float64", 32), "B": ("float32", 512)}
     meta = {
         "C": ("cauchy_matmul", "src/repro_torch/csrc/cauchy_matmul.cu",
@@ -4349,8 +4516,8 @@ def main() -> int:
     for k, (name, source, replaces, counter) in meta.items():
         row = next(rw for key, rw in zip(cases, rows) if key == (k,) + headline[k])
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[counter] + sum(d[counter]
-                                                            for d in drive_launches.values()),
+                        "launches": launches[counter] + x_launches[counter]
+                        + sum(d[counter] for d in drive_launches.values()),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4363,7 +4530,8 @@ def main() -> int:
     kernels.append({"name": "sparse_project", "route": "cuda",
                     "source": "src/repro_torch/csrc/sparse_proj.cu",
                     "replaces": "src/repro/kernels/sparse_proj.py:179",
-                    "launches": sum(d["sparse_project"] for d in drive_launches.values()),
+                    "launches": x_launches["sparse_project"]
+                    + sum(d["sparse_project"] for d in drive_launches.values()),
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "device_ms": row["device_ms"], "prep_walk_ms": row["prep_walk_ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -4381,8 +4549,8 @@ def main() -> int:
              "nearfield", next(rw for rw in e_rows if rw["dtype"] == "float64"
                                and rw["shape"].startswith("full B8")))):
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[counter] + sum(d[counter]
-                                                            for d in drive_launches.values()),
+                        "launches": launches[counter] + x_launches[counter]
+                        + sum(d[counter] for d in drive_launches.values()),
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": None,

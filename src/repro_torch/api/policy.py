@@ -68,6 +68,10 @@ class UpdatePolicy:
     8
     >>> hash(pol) == hash(UpdatePolicy(method="fmm", fmm_p=12))
     True
+    >>> UpdatePolicy(method="svd")
+    Traceback (most recent call last):
+        ...
+    ValueError: unknown method 'svd'; one of ('auto', 'direct', 'fmm', 'fast', 'pallas', 'kernel', 'fused')
     """
 
     method: str = "auto"
@@ -107,7 +111,22 @@ class UpdatePolicy:
     def resolve_method(self, problem_n: int, *, m: int | None = None, n: int | None = None,
                        rank: int | None = None) -> str:
         """Concrete engine method for a problem of secular size ``problem_n``
-        (``n`` for full updates, ``rank + 1`` for truncated ones)."""
+        (``n`` for full updates, ``rank + 1`` for truncated ones).
+
+        ``auto`` takes the fused kernels whenever enough geometry is known
+        (``m``, plus ``n`` / ``rank`` where they differ from ``problem_n``)
+        and it passes the reference's gate; otherwise the FMM above its
+        floor, else ``direct``:
+
+        >>> UpdatePolicy(method="fmm").resolve_method(problem_n=256)
+        'fmm'
+        >>> UpdatePolicy().resolve_method(problem_n=9)  # auto: below the FMM floor
+        'direct'
+        >>> UpdatePolicy(method="pallas").resolve_method(64)  # public kernel name
+        'kernel'
+        >>> UpdatePolicy().resolve_method(48, m=32)  # auto + geometry: fused
+        'fused'
+        """
         if self.method == "fast":
             raise NotImplementedError(
                 "method='fast' (Gerasoulis FAST) is the reference's host-side benchmark "

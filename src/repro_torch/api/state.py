@@ -157,7 +157,20 @@ class SvdState:
     def from_dense(cls, x, rank: int | None = None, *, device="cuda", dtype=None,
                    mesh=None) -> "SvdState":
         """SVD of a dense matrix (``torch.linalg.svd``): the full paper state
-        for ``rank=None`` (requires m <= n), else the rank-r truncated state."""
+        for ``rank=None`` (requires m <= n), else the rank-r truncated state.
+
+        >>> import numpy as np
+        >>> from repro_torch.api import SvdState
+        >>> x = np.arange(12.0).reshape(3, 4)                  # rank-2 matrix
+        >>> full = SvdState.from_dense(x, device="cpu")        # full paper state
+        >>> full.shape, full.rank, full.is_full
+        ((3, 4), 3, True)
+        >>> tr = SvdState.from_dense(x, rank=2, device="cpu")  # truncated streaming state
+        >>> tr.rank, tr.is_full
+        (2, False)
+        >>> bool(np.allclose(tr.materialize(), x, atol=1e-8))
+        True
+        """
         x = _tensor(x, resolve_device(device), dtype)
         if x.dim() != 2:
             raise ValueError(f"from_dense expects a 2-D matrix; got {tuple(x.shape)}")
@@ -177,7 +190,19 @@ class SvdState:
     @classmethod
     def from_factors(cls, u, s, v, *, device="cuda", dtype=None, mesh=None) -> "SvdState":
         """Wrap existing factors (full or truncated, stacked or single); ``v``
-        holds the right singular vectors as COLUMNS."""
+        holds the right singular vectors as COLUMNS: pass ``vt.T`` if the
+        factors come from ``np.linalg.svd``.
+
+        >>> import numpy as np
+        >>> from repro_torch.api import SvdState
+        >>> u, s, vt = np.linalg.svd(np.eye(3, 5))
+        >>> st = SvdState.from_factors(u, s, vt.T, device="cpu")
+        >>> st.shape, st.is_full
+        ((3, 5), True)
+        >>> stacked = SvdState.from_factors(u[None], s[None], vt.T[None], device="cpu")
+        >>> stacked.is_batched, stacked.batch    # leading axis = B problems
+        (True, 1)
+        """
         dev = resolve_device(device)
         u, s, v = (_tensor(x, dev, dtype) for x in (u, s, v))
         if u.dim() != v.dim() or u.dim() != s.dim() + 1 or u.dim() not in (2, 3):
@@ -201,14 +226,28 @@ class SvdState:
                         mesh=self.mesh)
 
     def truncate(self, rank: int) -> "SvdState":
-        """Keep the top-``rank`` triplets (drops the eigen diagnostics)."""
+        """Keep the top-``rank`` triplets (drops the eigen diagnostics).
+
+        >>> import numpy as np
+        >>> from repro_torch.api import SvdState
+        >>> st = SvdState.from_dense(np.eye(4, 6), rank=3, device="cpu")
+        >>> st.truncate(2).rank
+        2
+        """
         if rank > self.rank:
             raise ValueError(f"cannot truncate rank {self.rank} state to {rank}")
         return SvdState(u=self.u[..., :, :rank], s=self.s[..., :rank], v=self.v[..., :, :rank],
                         mesh=self.mesh)
 
     def materialize(self) -> torch.Tensor:
-        """Dense ``A = u @ diag(s) @ v_k^T`` (full states use ``v[:, :m]``)."""
+        """Dense ``A = u @ diag(s) @ v_k^T`` (full states use ``v[:, :m]``).
+
+        >>> import numpy as np
+        >>> from repro_torch.api import SvdState
+        >>> x = np.array([[2.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+        >>> bool(np.allclose(SvdState.from_dense(x, device="cpu").materialize(), x))
+        True
+        """
         v = self.v[..., :, : self.rank]
         return (self.u * self.s[..., None, :]) @ v.mT
 
@@ -223,7 +262,14 @@ def like_container(tmpl, u, s, v):
 def as_state(obj) -> SvdState:
     """Coerce an SVD container (``SvdState``, ``TruncatedSvd``,
     ``SvdUpdateResult`` or a ``(u, s, v)`` triple of tensors) to ``SvdState``;
-    the state stays on the tensors' device."""
+    the state stays on the tensors' device.
+
+    >>> import torch
+    >>> from repro_torch.api import as_state
+    >>> st = as_state((torch.eye(3), torch.ones(3), torch.eye(4)[:, :3]))
+    >>> (st.m, st.n, st.rank, str(st.device))
+    (3, 4, 3, 'cpu')
+    """
     if isinstance(obj, SvdState):
         return obj
     if getattr(obj, "u", None) is not None:

@@ -56,7 +56,15 @@ def engine_from_key(policy: UpdatePolicy, problem_n: int, *, m: int | None = Non
 
 
 def engine_for(policy: UpdatePolicy, state: SvdState) -> SvdEngine:
-    """The shared engine a (policy, state geometry) pair runs on."""
+    """The shared engine a (policy, state geometry) pair runs on.
+
+    >>> import numpy as np
+    >>> from repro_torch import api
+    >>> st = api.SvdState.from_dense(np.eye(4, 6), rank=2, device="cpu")
+    >>> pol = api.UpdatePolicy(method="direct")
+    >>> api.engine_for(pol, st) is api.engine_for(pol.replace(truncate_to=2), st)
+    True
+    """
     if state.is_full:
         return engine_from_key(policy, state.n, m=state.m, n=state.n)
     return engine_from_key(policy, state.rank + 1, m=state.m, n=state.n, rank=state.rank)
@@ -88,7 +96,28 @@ def update(state, a, b, policy: UpdatePolicy | None = None) -> SvdState:
     """SVD of ``state + a b^T`` under ``policy``: full or truncated, single or
     stacked, decided by geometry.  ``a``: (..., m), ``b``: (..., n), with the
     leading batch axis iff the state is stacked.  Full states keep the eigen
-    diagnostics."""
+    diagnostics.
+
+    >>> import numpy as np
+    >>> from repro_torch import api
+    >>> rng = np.random.default_rng(0)
+    >>> x = rng.normal(size=(4, 6))
+    >>> st = api.SvdState.from_dense(x, device="cpu")   # full paper state
+    >>> a, b = rng.normal(size=4), rng.normal(size=6)
+    >>> out = api.update(st, a, b, api.UpdatePolicy(method="direct"))
+    >>> out.shape, out.rank
+    ((4, 6), 4)
+    >>> ref = np.linalg.svd(x + np.outer(a, b), compute_uv=False)
+    >>> bool(np.allclose(out.s, ref, atol=1e-10))     # matches a fresh SVD
+    True
+
+    The same entry point runs the truncated streaming route when the state
+    is truncated: geometry picks the dispatch.
+
+    >>> tr = api.SvdState.from_dense(x, rank=2, device="cpu")
+    >>> api.update(tr, a, b).rank                     # default policy
+    2
+    """
     policy, st = _prepare(state, policy)
     a, b = _vec(a, st), _vec(b, st)
     eng = engine_for(policy, st)
@@ -114,7 +143,19 @@ def update(state, a, b, policy: UpdatePolicy | None = None) -> SvdState:
 def update_many(states: Sequence, A, B, policy: UpdatePolicy | None = None) -> tuple:
     """Many independent rank-1 updates in as few engine calls as possible:
     ``states[i]`` absorbs ``A[i] B[i]^T``; states sharing a geometry are
-    stacked into one batched call, results come back in input order."""
+    stacked into one batched call, results come back in input order.
+
+    >>> import numpy as np
+    >>> from repro_torch import api
+    >>> rng = np.random.default_rng(1)
+    >>> sts = [api.SvdState.from_dense(rng.normal(size=(4, 5)), rank=2, device="cpu")
+    ...        for _ in range(3)]
+    >>> A = [rng.normal(size=4) for _ in range(3)]
+    >>> B = [rng.normal(size=5) for _ in range(3)]
+    >>> outs = api.update_many(sts, A, B)             # one batched engine call
+    >>> len(outs), outs[0].rank
+    (3, 2)
+    """
     policy = policy if policy is not None else _DEFAULT_POLICY
     sts = [as_state(s) for s in states]
     if len(sts) != len(A) or len(sts) != len(B):
@@ -145,7 +186,19 @@ def update_rank_k(state, A, B, policy: UpdatePolicy | None = None) -> SvdState:
     ``A``: (k, m) rows of left vectors, ``B``: (k, n) rows of right vectors,
     with a leading batch axis before k iff the state is stacked.  With
     ``truncate_to`` below the state's rank the pairs run one ``update`` at a
-    time, so that the rule applies after each of them."""
+    time, so that the rule applies after each of them.
+
+    >>> import numpy as np
+    >>> from repro_torch import api
+    >>> rng = np.random.default_rng(2)
+    >>> x = rng.normal(size=(4, 6))
+    >>> st = api.SvdState.from_dense(x, device="cpu")
+    >>> A = rng.normal(size=(3, 4)); B = rng.normal(size=(3, 6))
+    >>> out = api.update_rank_k(st, A, B, api.UpdatePolicy(method="direct"))
+    >>> ref = np.linalg.svd(x + A.T @ B, compute_uv=False)
+    >>> bool(np.allclose(out.s, ref, atol=1e-9))
+    True
+    """
     policy = policy if policy is not None else _DEFAULT_POLICY
     if policy.truncate_to is not None and policy.truncate_to < as_state(state).rank:
         out = as_state(state)

@@ -1,5 +1,8 @@
 """Core numerics of the port, plain PyTorch over a leading batch dimension.
 
+Every public function also takes the reference's single-member shapes
+(no batch axis) and returns its single-member results (``core._single``).
+
   cheb         Chebyshev nodes and Lagrange operators
   secular      deflation, anchored secular solve, Loewner weights
   cauchy       stable Cauchy products
@@ -10,13 +13,21 @@
   engine       SvdEngine: batched entry points, precision, cache accounting
 """
 
-from repro_torch.core.cauchy import cauchy_colnorms_stable, cauchy_matmul_stable, cauchy_matrix
+from repro_torch.core.cauchy import (
+    cauchy_colnorms_stable,
+    cauchy_matmul,
+    cauchy_matmul_stable,
+    cauchy_matrix,
+    cauchy_matvec,
+)
 from repro_torch.core.eigh_update import (
     EighUpdatePlan,
     apply_update,
+    apply_update_batch,
     eigenvalues,
     eigh_update,
     make_plan,
+    make_plan_batch,
     materialize_q,
 )
 from repro_torch.core.engine import EngineCacheInfo, SvdEngine, default_engine
@@ -25,14 +36,18 @@ from repro_torch.core.secular import deflate, loewner_zhat, secular_solve
 from repro_torch.core.svd_update import SvdUpdateResult, TruncatedSvd
 
 __all__ = [
-    "cauchy_colnorms_stable",
+    "cauchy_matmul",
     "cauchy_matmul_stable",
     "cauchy_matrix",
+    "cauchy_matvec",
+    "cauchy_colnorms_stable",
     "EighUpdatePlan",
     "apply_update",
+    "apply_update_batch",
     "eigenvalues",
     "eigh_update",
     "make_plan",
+    "make_plan_batch",
     "materialize_q",
     "EngineCacheInfo",
     "SvdEngine",

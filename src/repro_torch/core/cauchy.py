@@ -2,23 +2,56 @@
 
 Counterpart of ``repro.core.cauchy``.  ``C[j, i] = 1 / (src_j - mu_i)``; the
 stable form takes the targets anchored, ``mu_i = src[anchor_i] + tau_i``, so
-a root that hugs a pole keeps its accuracy.  Tensors carry a leading batch
-dimension; products are chunked over targets so no more than a chunk of the
-(N, M) matrix exists at a time.
+a root that hugs a pole keeps its accuracy; ``cauchy_matmul`` takes raw
+coordinates, for sources and targets well apart.  Tensors carry a leading
+batch dimension, or none for one member as in the reference
+(``core._single``); products are chunked over targets so no more than a
+chunk of the (N, M) matrix exists at a time.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["cauchy_matrix", "cauchy_matmul_stable", "cauchy_colnorms_stable"]
+from repro_torch.core._single import single_member
+
+__all__ = ["cauchy_matrix", "cauchy_matvec", "cauchy_matmul", "cauchy_matmul_stable",
+           "cauchy_colnorms_stable"]
 
 
+@single_member(2)
 def cauchy_matrix(src, tgt):
     """``C[b, j, i] = 1 / (src_bj - tgt_bi)``."""
     return 1.0 / (src[:, :, None] - tgt[:, None, :])
 
 
+@single_member(2)
+def cauchy_matvec(weights, src, tgt):
+    """``f[b, i] = sum_j weights[b, j] / (src_bj - tgt_bi)``.
+
+    One member, as the reference takes it, and a batch of two:
+
+    >>> src = torch.tensor([1.0, 2.0, 4.0], dtype=torch.float64)
+    >>> tgt = torch.tensor([1.5, 3.0], dtype=torch.float64)
+    >>> [round(x, 12) for x in cauchy_matvec(torch.ones(3, dtype=torch.float64), src, tgt).tolist()]
+    [0.4, -0.5]
+    >>> tuple(cauchy_matvec(torch.ones(2, 3, dtype=torch.float64), src.expand(2, 3),
+    ...                     tgt.expand(2, 2)).shape)
+    (2, 2)
+    """
+    return cauchy_matmul(weights[:, None, :], src, tgt)[:, 0]
+
+
+@single_member(3)
+def cauchy_matmul(w, src, tgt, *, chunk: int = 2048):
+    """``out[b, r, i] = sum_j w[b, r, j] / (src_bj - tgt_bi)`` for ``w`` (B, R, N):
+    a chunk of the Cauchy matrix at a time, then its product."""
+    m = tgt.shape[1]
+    return torch.cat([w @ (1.0 / (src[:, :, None] - tgt[:, None, lo:lo + chunk]))
+                      for lo in range(0, m, chunk)], dim=2)
+
+
+@single_member(3)
 def cauchy_matmul_stable(w, src, anchor, tau, *, src_valid=None, tgt_valid=None,
                          chunk: int = 2048):
     """``out[b, r, i] = sum_j w[b, r, j] / (src_bj - mu_bi)`` with the
@@ -42,6 +75,7 @@ def cauchy_matmul_stable(w, src, anchor, tau, *, src_valid=None, tgt_valid=None,
     return torch.cat(outs, dim=2)
 
 
+@single_member(2)
 def cauchy_colnorms_stable(zhat, src, anchor, tau, *, src_valid=None, tgt_valid=None):
     """Norms of the scaled Cauchy columns, ``sum_j zhat_j^2 / (src_j - mu_i)^2``
     under the square root; invalid targets get norm 1."""

@@ -8,7 +8,12 @@ as a dense stable product (``method="direct"``), through
 ``kernels.ops.cauchy_matmul_stable`` (``"kernel"``: kernel C on a card), or
 through the Chebyshev FMM of ``core.fmm`` (``"fmm"``, for problems of at
 least ``FMM_MIN_N`` poles; its near field is kernel E on a card).  Every
-field and argument has a leading batch dimension.
+field and argument has a leading batch dimension, or none for one member as
+in the reference (``core._single``): a plan built from one member keeps
+single-member fields, so ``eigenvalues``, ``apply_update`` and
+``materialize_q`` return (n,), (m, n) and (n, n) for it.
+``make_plan_batch`` / ``apply_update_batch`` are the reference's batched
+names for the batched calls.
 
 A member whose FMM plan overflowed its static box capacity takes the dense
 stable product instead, as the reference's ``lax.cond`` does: ``make_plan``
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.core import cauchy as _cauchy
 from repro_torch.core import fmm as _fmm
+from repro_torch.core._single import single_member
 from repro_torch.core.secular import (
     apply_givens_columns,
     deflate,
@@ -38,8 +44,10 @@ from repro_torch.core.secular import (
 __all__ = [
     "EighUpdatePlan",
     "make_plan",
+    "make_plan_batch",
     "eigenvalues",
     "apply_update",
+    "apply_update_batch",
     "materialize_q",
     "eigh_update",
     "FMM_MIN_N",
@@ -86,6 +94,7 @@ def _take(x, idx):
     return torch.gather(x, 2, idx[:, None, :].expand(x.shape[0], x.shape[1], idx.shape[1]))
 
 
+@single_member(2)
 def make_plan(d, z, rho, *, rho_positive: bool, fmm_p: int = 20, build_fmm: bool = False,
               deflate_rtol: float | None = None) -> EighUpdatePlan:
     """Structured eigen-update operator for ``diag(d) + rho z z^T``.
@@ -132,6 +141,7 @@ def make_plan(d, z, rho, *, rho_positive: bool, fmm_p: int = 20, build_fmm: bool
     )
 
 
+@single_member(2)
 def eigenvalues(plan: EighUpdatePlan):
     """Eigenvalues of ``diag(d) + rho z z^T``, ascending."""
     mu = torch.gather(plan.mu_full, 1, plan.out_sort)
@@ -167,6 +177,7 @@ def _cauchy_block(plan: EighUpdatePlan, wc, method: str):
     return out / plan.colnorm[:, None, :]
 
 
+@single_member(2)
 def apply_update(plan: EighUpdatePlan, w, *, method: str = "direct"):
     """``w @ Q`` for ``w`` (B, m, n), Q's columns the eigenvectors in ascending
     order: sort, deflation rotations, compaction, scaled-Cauchy product with
@@ -184,6 +195,28 @@ def apply_update(plan: EighUpdatePlan, w, *, method: str = "direct"):
     return out
 
 
+def _require_batch(x, name: str) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"{name} takes batched inputs, (B, n); got {tuple(x.shape)}")
+
+
+def make_plan_batch(d, z, rho, *, rho_positive: bool, fmm_p: int = 20, build_fmm: bool = False,
+                    deflate_rtol: float | None = None) -> EighUpdatePlan:
+    """Batched ``make_plan``: ``d`` / ``z`` (B, n), ``rho`` (B,); every data field
+    of the plan carries the batch axis, the static fields are shared."""
+    _require_batch(d, "make_plan_batch")
+    return make_plan(d, z, rho, rho_positive=rho_positive, fmm_p=fmm_p, build_fmm=build_fmm,
+                     deflate_rtol=deflate_rtol)
+
+
+def apply_update_batch(plan: EighUpdatePlan, w, *, method: str = "direct"):
+    """Batched ``apply_update``: a plan from ``make_plan_batch`` and ``w``
+    (B, m, n) -> (B, m, n)."""
+    _require_batch(plan.sort_idx, "apply_update_batch")
+    return apply_update(plan, w, method=method)
+
+
+@single_member(2)
 def materialize_q(plan: EighUpdatePlan, *, method: str = "direct", dtype=None):
     """The dense (B, n, n) eigenvector rotation Q (ascending-mu columns)."""
     dt = dtype or plan.dc.dtype
@@ -192,7 +225,18 @@ def materialize_q(plan: EighUpdatePlan, *, method: str = "direct", dtype=None):
 
 
 def eigh_update(u, d, z, rho, *, rho_positive: bool, method: str = "direct", fmm_p: int = 20):
-    """``(mu, U_new)`` for ``U diag(d) U^T + rho (Uz)(Uz)^T = U_new diag(mu) U_new^T``."""
+    """``(mu, U_new)`` for ``U diag(d) U^T + rho (Uz)(Uz)^T = U_new diag(mu) U_new^T``.
+
+    >>> d = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64)
+    >>> z = torch.tensor([0.5, 0.5, 0.5], dtype=torch.float64)
+    >>> rho = torch.tensor(1.0, dtype=torch.float64)
+    >>> mu, q = eigh_update(torch.eye(3, dtype=torch.float64), d, z, rho, rho_positive=True)
+    >>> tuple(mu.shape), tuple(q.shape)           # one member, as the reference
+    ((3,), (3, 3))
+    >>> a = torch.diag(d) + rho * torch.outer(z, z)
+    >>> bool(torch.allclose(mu, torch.linalg.eigvalsh(a))), bool(torch.allclose(q @ torch.diag(mu) @ q.T, a))
+    (True, True)
+    """
     plan = make_plan(d, z, rho, rho_positive=rho_positive, build_fmm=(method == "fmm"),
                      fmm_p=fmm_p)
     return eigenvalues(plan), apply_update(plan, u, method=method)

@@ -6,7 +6,9 @@ weights ``w`` it evaluates
     f(y_i) = sum_j w_j / (y_i - x_j)
 
 in O((N + M) p) per weight vector, p the Chebyshev order.  Every tensor
-carries a leading batch dimension B; the static structure (``p, nlevs, nb,
+carries a leading batch dimension B, or none for one member as in the
+reference (``core._single``: a plan built from one member keeps
+single-member fields); the static structure (``p, nlevs, nb,
 cap, capt, n, m, k_out``) is shared by the batch.
 
 * ``build_plan`` bins sources and targets by value into ``nb`` leaf boxes of
@@ -36,9 +38,11 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+from typing import ClassVar
 
 import torch
 
+from repro_torch.core._single import single_member
 from repro_torch.core.cheb import cheb_nodes, lagrange_eval
 
 __all__ = ["FmmPlan", "build_plan", "fmm_apply", "fmm_matvec", "fmm_error_bound",
@@ -54,6 +58,9 @@ OVERFLOWED: collections.deque = collections.deque(maxlen=256)
 
 @dataclasses.dataclass(frozen=True)
 class FmmPlan:
+    # the operators every member shares (no batch axis)
+    SHARED: ClassVar[tuple[str, ...]] = ("m2m_l", "m2m_r", "t_hat")
+
     src: torch.Tensor           # (B, N) source coordinates
     src_box_idx: torch.Tensor   # (B, nb, cap) indices into the sources
     src_box_mask: torch.Tensor  # (B, nb, cap) bool
@@ -139,6 +146,7 @@ def _neighbour(a, o: int):
     return torch.cat([fill, a[:, :o]], dim=1)
 
 
+@single_member(2)
 def build_plan(src, tgt, *, p: int = 20, leaf_size: int | None = None, cap_factor: int = 4,
                src_valid=None, tgt_valid=None, tgt_anchor=None, tgt_tau=None) -> FmmPlan:
     """The FMM geometry and operators for sources ``src`` (B, N) and targets
@@ -277,10 +285,14 @@ def near_operands(plan: FmmPlan, w):
     return w_near, plan.x_near, plan.av_b, plan.tau_b, plan.tgt_box_mask
 
 
+@single_member(2)
 def fmm_apply(plan: FmmPlan, w):
-    """``f[b, r, i] = sum_j w[b, r, j] / (tgt_bi - src_bj)`` for ``w`` (B, R, N)."""
+    """``f[b, r, i] = sum_j w[b, r, j] / (tgt_bi - src_bj)`` for ``w`` (B, R, N),
+    or ``f[b, i]`` for ``w`` (B, N)."""
     from repro_torch.kernels import ops as _kops
 
+    if w.dim() == 2:
+        return fmm_apply(plan, w[:, None, :])[:, 0]
     bsz, r_dim, _ = w.shape
     dt = w.dtype
     nlevs, p = plan.nlevs, plan.p
@@ -331,8 +343,5 @@ def fmm_apply(plan: FmmPlan, w):
 
 def fmm_matvec(weights, src, tgt, *, p: int = 20, **kw):
     """One-shot ``f[b, (r,) i] = sum_j weights[b, (r,) j] / (tgt_bi - src_bj)``;
-    ``weights`` is (B, N) or (B, R, N)."""
-    plan = build_plan(src, tgt, p=p, **kw)
-    if weights.dim() == 2:
-        return fmm_apply(plan, weights[:, None, :])[:, 0]
-    return fmm_apply(plan, weights)
+    ``weights`` is (B, N) or (B, R, N), or (N,) or (R, N) with ``src`` (N,)."""
+    return fmm_apply(build_plan(src, tgt, p=p, **kw), weights)

@@ -3,9 +3,9 @@
 Counterpart of ``repro.core.secular``: Bunch–Nielsen–Sorensen deflation
 with recorded Givens rotations, the anchored bisection + Newton secular
 solve, and the Gu–Eisenstat (Loewner) reweighting of ``z``.  Every function
-takes tensors with a leading batch dimension ``B``; the sequential Givens
-chain of the deflation is a Python loop over the coordinate, vectorised over
-the batch.
+takes tensors with a leading batch dimension ``B``, and the reference's, one
+member without it (``core._single``); the sequential Givens chain of the
+deflation is a Python loop over the coordinate, vectorised over the batch.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core._single import single_member
 
 __all__ = [
     "DeflationResult",
@@ -42,6 +44,7 @@ class DeflationResult(NamedTuple):
     compact: torch.Tensor    # retained-first stable permutation
 
 
+@single_member(2)
 def deflate(d, z, rho, *, rtol: float | None = None) -> DeflationResult:
     """BNS deflation for ``D + rho z z^T`` (rho > 0, d ascending), LAPACK
     style: each entry is compared with the last *retained* entry."""
@@ -98,6 +101,7 @@ def deflate(d, z, rho, *, rtol: float | None = None) -> DeflationResult:
 GIVENS_LOOP_MAX = 64
 
 
+@single_member(3)
 def apply_givens_columns(w, a_idx, b_idx, c, s, any_rot):
     """Apply the recorded deflation rotations to the columns of ``w`` (B, m, n)
     in forward order: ``col_a' = c col_a + s col_b``, ``col_b' = -s col_a +
@@ -188,6 +192,7 @@ def secular_brackets(dc, zc, rho, n_keep) -> SecularBrackets:
     return SecularBrackets(anchor_idx, anchor_vals, lo, hi, valid, zc2)
 
 
+@single_member(2)
 def secular_solve(dc, zc, rho, n_keep, *, n_bisect: int = 58,
                   n_newton: int = 4) -> SecularRoots:
     """Solve the compacted secular equation (rho > 0): retained poles first,
@@ -214,12 +219,14 @@ def secular_solve(dc, zc, rho, n_keep, *, n_bisect: int = 58,
     return SecularRoots(mu, anchor_idx, tau, valid)
 
 
+@single_member(2)
 def mu_minus_d(roots: SecularRoots, dc):
     """Accurate ``delta[b, i, j] = mu_i - dc_j`` from the anchored roots."""
     anchor_vals = torch.gather(dc, 1, roots.anchor)
     return (anchor_vals[:, :, None] - dc[:, None, :]) + roots.tau[:, :, None]
 
 
+@single_member(2)
 def loewner_zhat(dc, zc, rho, roots: SecularRoots):
     """Gu–Eisenstat ``zhat`` from the solved roots, in log-magnitude space:
     ``zhat_j^2 = prod_i (mu_i - dc_j) / (rho prod_{i != j} (dc_i - dc_j))``.

@@ -120,14 +120,33 @@ def _topk(u, s, v, k: int):
 
 def factored_svd(q, b, k: int):
     """Top-k triplets of the already-factored product ``q @ b``: ``q``
-    (..., m, l) with orthonormal columns, ``b`` (..., l, n)."""
+    (..., m, l) with orthonormal columns, ``b`` (..., l, n).
+
+    >>> import numpy as np
+    >>> rng = np.random.default_rng(3)
+    >>> qm, _ = np.linalg.qr(rng.normal(size=(7, 2)))
+    >>> b = rng.normal(size=(2, 5))
+    >>> u, s, v = factored_svd(qm, b, k=2)
+    >>> bool(np.allclose((u * s) @ v.mT, qm @ b, atol=1e-12))
+    True
+    """
     return _topk(*_qb_svd(_tensor(q), _tensor(b)), k)
 
 
 def range_finder(delta, k: int, *, oversample: int = 8, power_iters: int = 1):
     """The QB decomposition ``delta ≈ q @ b``: ``q`` (..., m, l), ``b``
     (..., l, n) with ``l = sample_count(k, oversample, m, n)``; exact whenever
-    ``l >= rank(delta)``."""
+    ``l >= rank(delta)``.
+
+    >>> import numpy as np
+    >>> rng = np.random.default_rng(1)
+    >>> delta = np.outer(rng.normal(size=5), rng.normal(size=6))  # rank 1
+    >>> q, b = range_finder(delta, k=1, oversample=2)
+    >>> tuple(q.shape), tuple(b.shape)
+    ((5, 3), (3, 6))
+    >>> bool(np.allclose(q @ b, delta, atol=1e-12))
+    True
+    """
     delta = _tensor(delta)
     m, n = delta.shape[-2:]
     l = sample_count(k, oversample, m, n)
@@ -141,7 +160,19 @@ def range_finder(delta, k: int, *, oversample: int = 8, power_iters: int = 1):
 
 def sketch_svd(delta, k: int, *, oversample: int = 8, power_iters: int = 1):
     """Top-k SVD triplets ``(u, s, v)`` of ``delta`` (..., m, n) through the
-    range-finder; leading batch axes run batched."""
+    range-finder; leading batch axes run batched.
+
+    >>> import numpy as np
+    >>> rng = np.random.default_rng(2)
+    >>> deltas = np.einsum("bm,bn->bmn", rng.normal(size=(4, 5)),
+    ...                    rng.normal(size=(4, 6)))               # 4 x rank-1
+    >>> u, s, v = sketch_svd(deltas, k=1)
+    >>> tuple(u.shape), tuple(s.shape), tuple(v.shape)
+    ((4, 5, 1), (4, 1), (4, 6, 1))
+    >>> recon = torch.einsum("bmk,bk,bnk->bmn", u, s, v)
+    >>> bool(np.allclose(recon, deltas, atol=1e-10))
+    True
+    """
     q, b = range_finder(delta, k, oversample=oversample, power_iters=power_iters)
     return _topk(*_qb_svd(q, b), k)
 
@@ -155,6 +186,14 @@ def sparse_sketch_svd(rows, cols, vals, *, m: int, n: int, k: int, oversample: i
         Q = qr(Y),  P = qr(W)
         C = (ΨᵀQ)⁻¹ (ΨᵀY) (PᵀΩ)⁻¹  (small l x l solves)
         S ≈ Q C Pᵀ                   (exact whenever l >= rank(S))
+
+    >>> import numpy as np
+    >>> rows, cols = np.array([0, 2, 1]), np.array([1, 0, 1])
+    >>> vals = np.array([3.0, -2.0, 4.0])
+    >>> u, s, v = sparse_sketch_svd(rows, cols, vals, m=3, n=2, k=2)
+    >>> dense = np.zeros((3, 2)); dense[rows, cols] = vals
+    >>> bool(np.allclose((u * s) @ v.mT, dense, atol=1e-12))
+    True
     """
     vals = _tensor(vals)
     l = sample_count(k, oversample, m, n)
