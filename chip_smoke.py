@@ -92,7 +92,7 @@ result) when it fails:
    steps (rank 32, a refresh every 4), each from its own init; finite
    losses, the first within 1 of ln(vocab); ms a step split into forward and
    backward, the trackers' update, the refresh and the rest of the optimizer
-   (CUDA events on the pieces), peak memory against ``moment_memory_ratio``,
+   (the program's own spans, timed on the card), peak memory against ``moment_memory_ratio``,
    the device's busy share of a step (profiler) and its host waits (none in
    an AdamW step that neither logs nor saves: a check); (t2) the card
    against the port on the CPU at the smoke config, AdamW and spectral-Adam,
@@ -980,66 +980,42 @@ def _card_bytes(tree) -> int:
                if isinstance(x, torch.Tensor) and x.is_cuda)
 
 
-class _StepClock:
-    """CUDA events around the pieces of a training step, by patching the
-    module attributes the step calls: the forward and backward
-    (``loop.loss_and_grads``), the optimizer (``loop.adamw_update`` /
-    ``loop.spectral_adam_update``) and, inside spectral-Adam, the trackers'
-    update (``spectral_update_basis_grouped``, the phase chain) and the
-    refresh (``_refresh``).  ``split()`` gives each step's ms by piece."""
+class _SpanClock:
+    """The pieces of each training step from the program's own spans
+    (``obs.start_tracing(device=True)``: the card's time from a span's enter
+    to its exit): the step (``train_step``), the forward and backward
+    (``fwd_bwd``), the optimizer (``optimizer``) and, inside spectral-Adam,
+    the trackers' update (``trackers``, the phase chain) and the refresh
+    (``refresh``).  ``split()`` gives each step's ms by piece."""
 
-    def __init__(self):
-        import torch
-
-        from repro_torch.optim import spectral_adam as SA
-        from repro_torch.train import loop
-
-        self.torch, self.loop, self.marks = torch, loop, []
-        self.patches = [(loop, "loss_and_grads"), (loop, "adamw_update"),
-                        (loop, "spectral_adam_update"), (SA, "spectral_update_basis_grouped"),
-                        (SA, "_refresh")]
-        self.saved = [getattr(m, n) for m, n in self.patches]
-
-    def _wrap(self, name, fn):
-        def timed(*args, **kwargs):
-            e0 = self.torch.cuda.Event(enable_timing=True)
-            e1 = self.torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*args, **kwargs)
-            e1.record()
-            self.marks.append((name, e0, e1))
-            return out
-
-        return timed
+    PIECES = ("fwd_bwd", "optimizer", "trackers", "refresh")
 
     def __enter__(self):
-        for (mod, name), fn in zip(self.patches, self.saved):
-            setattr(mod, name, self._wrap(name, fn))
+        from repro_torch import obs
+
+        self.obs = obs
+        obs.clear_trace()
+        obs.start_tracing(device=True)
         return self
 
     def __exit__(self, *exc):
-        for (mod, name), fn in zip(self.patches, self.saved):
-            setattr(mod, name, fn)
+        self.obs.stop_tracing()
 
     def split(self) -> list[dict]:
-        """Per step: fwd_bwd, the optimizer's pieces, and the step (the
-        first event of the forward to the optimizer's last)."""
-        self.torch.cuda.synchronize()
-        steps, cur = [], None
-        for name, e0, e1 in self.marks:
-            if name == "loss_and_grads":
-                cur = {"fwd_bwd_ms": e0.elapsed_time(e1), "_start": e0, "trackers_ms": 0.0,
-                       "refresh_ms": 0.0}
-                steps.append(cur)
-            elif name == "spectral_update_basis_grouped":
-                cur["trackers_ms"] += e0.elapsed_time(e1)
-            elif name == "_refresh":
-                cur["refresh_ms"] += e0.elapsed_time(e1)
-            else:
-                cur["optimizer_ms"] = e0.elapsed_time(e1)
-                cur["step_ms"] = cur.pop("_start").elapsed_time(e1)
+        """Per step: ``step_ms``, each piece's ms (0 where the step had none),
+        the rest of the optimizer, and ``pieces``, the spans the step had."""
+        steps = []
+        for t in self.obs.device_times():
+            if t["name"] == "train_step":
+                steps.append({"step_ms": t["ms"], "pieces": set(),
+                              **{f"{p}_ms": 0.0 for p in self.PIECES}})
+            elif steps and t["name"] in self.PIECES:
+                steps[-1][f"{t['name']}_ms"] += t["ms"]
+                steps[-1]["pieces"].add(t["name"])
+        self.obs.clear_trace()
         for st in steps:
             st["rest_of_optimizer_ms"] = st["optimizer_ms"] - st["trackers_ms"] - st["refresh_ms"]
+            st["pieces"] = sorted(st["pieces"])
         return steps
 
 
@@ -1088,7 +1064,7 @@ def train_phase(dev, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base_mem = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        with _StepClock() as clock:
+        with _SpanClock() as clock:
             res = loop.train(run, batch_size=1, seq_len=TRAIN_SEQ, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1343,9 +1319,9 @@ def train_phase(dev, card: str) -> dict:
 
 def _train_t5_steps(dev, card, label, one_step, n_params, vocab, clock_steps, extra):
     """The step figures of a (t5) row: ms a step by piece over ``clock_steps``
-    (CUDA events, after the first), the host waits of one more step (0: a
-    check), the device's busy share of one more (profiler), the first loss
-    against ln(vocab)."""
+    (the program's spans on the card, after the first), the host waits of one
+    more step (0: a check), the device's busy share of one more (profiler),
+    the first loss against ln(vocab)."""
     import math
 
     import torch
@@ -1353,7 +1329,7 @@ def _train_t5_steps(dev, card, label, one_step, n_params, vocab, clock_steps, ex
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     losses = []
-    with _StepClock() as clock:
+    with _SpanClock() as clock:
         for step in range(clock_steps):
             losses.append(one_step(step))
     split = clock.split()
@@ -1426,7 +1402,7 @@ def _train_t5(dev, card, work) -> dict:
     run = RunConfig(model=cfg, optimizer=opt, steps=TRAIN_T5["steps"], log_every=1,
                     checkpoint_every=0, checkpoint_dir=str(work / "t5_rwkv"), seed=0)
     t0 = time.perf_counter()
-    with _StepClock() as clock:
+    with _SpanClock() as clock:
         res = loop.train(run, batch_size=TRAIN_T5["batch"], seq_len=TRAIN_T5["seq"], device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2293,28 +2269,6 @@ def _serve_g4_family(arch, fault_name, dev, card):
     return {"tokens_equal": {"greedy": toks}, "logits_rel": rel, "planted": fault}
 
 
-class _MeshClock(_StepClock):
-    """``_StepClock`` on a mesh training step: CUDA events around the slices'
-    forward and backward with their average (``loop.mesh_loss_and_grads``)
-    and the optimizer (``loop.adamw_update``)."""
-
-    def __init__(self):
-        super().__init__()
-        self.patches = [(self.loop, "mesh_loss_and_grads"), (self.loop, "adamw_update")]
-        self.saved = [getattr(m, n) for m, n in self.patches]
-
-    def split(self) -> list[dict]:
-        """Per step: the slices' fwd+bwd, AdamW, and the step."""
-        self.torch.cuda.synchronize()
-        steps = []
-        for (n0, a0, a1), (n1, b0, b1) in zip(self.marks[::2], self.marks[1::2]):
-            require(n0 == "mesh_loss_and_grads" and n1 == "adamw_update",
-                    f"(m1) unexpected pieces of a mesh step: {n0}, {n1}")
-            steps.append({"fwd_bwd_ms": a0.elapsed_time(a1), "optimizer_ms": b0.elapsed_time(b1),
-                          "step_ms": a0.elapsed_time(b1)})
-        return steps
-
-
 def _update_rel(got, want, start) -> float:
     """||got - want|| / ||want - start|| over all floating leaves: how far a
     step's parameter update parts from another's, over the update's size."""
@@ -2437,12 +2391,15 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    with _MeshClock() as clock:
+    with _SpanClock() as clock:
         res = loop.train(run, batch_size=sz["batch"], seq_len=sz["seq"], device=dev, mesh=mesh)
     sync()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base_mem
     split = clock.split()
+    for st in split:
+        require(st["pieces"] == ["fwd_bwd", "optimizer"],
+                f"(m1) unexpected pieces of a mesh step: {st['pieces']}")
     losses = [v for _, v in res.losses]
     require(len(losses) == sz["steps"] and all(v == v and abs(v) < 1e30 for v in losses),
             f"(m1) train(mesh=) losses not finite: {losses}")

@@ -20,6 +20,10 @@ stable product instead, as the reference's ``lax.cond`` does: ``make_plan``
 reads the overflow flags once per plan (one host read) and records the
 members in ``core.fmm.OVERFLOWED``.
 
+Spans (``obs``): ``deflate``, ``secular_solve`` and ``loewner`` (zhat and the
+Cauchy column norms) in ``make_plan``; ``givens`` and ``cauchy_product`` in
+``apply_update``.
+
 ``torch.argsort`` is not stable by default, while ``jnp.argsort`` is; the
 sorts here pass ``stable=True``, because the n - m structural zeros of the
 right-hand problem are exact ties.
@@ -40,6 +44,7 @@ from repro_torch.core.secular import (
     loewner_zhat,
     secular_solve,
 )
+from repro_torch.obs.trace import span
 
 __all__ = [
     "EighUpdatePlan",
@@ -111,14 +116,17 @@ def make_plan(d, z, rho, *, rho_positive: bool, fmm_p: int = 20, build_fmm: bool
     ds = torch.gather(d_w, 1, sort_idx)
     zs = torch.gather(z, 1, sort_idx)
 
-    defl = deflate(ds, zs, rho_w, rtol=deflate_rtol)
+    with span("deflate"):
+        defl = deflate(ds, zs, rho_w, rtol=deflate_rtol)
     dc = torch.gather(ds, 1, defl.compact)
     zc = torch.gather(defl.z, 1, defl.compact)
 
-    roots = secular_solve(dc, zc, rho_w, defl.n_keep)
-    zhat = loewner_zhat(dc, zc, rho_w, roots)
-    colnorm = _cauchy.cauchy_colnorms_stable(
-        zhat, dc, roots.anchor, roots.tau, src_valid=roots.valid, tgt_valid=roots.valid)
+    with span("secular_solve"):
+        roots = secular_solve(dc, zc, rho_w, defl.n_keep)
+    with span("loewner"):
+        zhat = loewner_zhat(dc, zc, rho_w, roots)
+        colnorm = _cauchy.cauchy_colnorms_stable(
+            zhat, dc, roots.anchor, roots.tau, src_valid=roots.valid, tgt_valid=roots.valid)
     mu_full = torch.where(roots.valid, roots.mu, dc)
     out_sort = torch.argsort(mu_full, dim=1, stable=True)
 
@@ -185,10 +193,12 @@ def apply_update(plan: EighUpdatePlan, w, *, method: str = "direct"):
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}; one of {_METHODS}")
     ws = _take(w, plan.sort_idx)
-    ws = apply_givens_columns(ws, plan.givens_a, plan.givens_b, plan.givens_c,
-                              plan.givens_s, plan.any_rot)
+    with span("givens"):
+        ws = apply_givens_columns(ws, plan.givens_a, plan.givens_b, plan.givens_c,
+                                  plan.givens_s, plan.any_rot)
     wc = _take(ws, plan.compact)
-    cau = _cauchy_block(plan, wc, method)
+    with span("cauchy_product"):
+        cau = _cauchy_block(plan, wc, method)
     out = _take(torch.where(plan.valid[:, None, :], cau, wc), plan.out_sort)
     if plan.negated:
         out = torch.flip(out, dims=(2,))

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.eigh_update import apply_update, eigenvalues, make_plan, materialize_q
+from repro_torch.obs.trace import span
 
 __all__ = ["SvdUpdateResult", "TruncatedSvd"]
 
@@ -157,7 +158,8 @@ def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct", fmm_p: int
                                deflate_rtol: float | None = None,
                                compute_dtype=None) -> TruncatedSvd:
     """Brand augmentation around Algorithm 6.1: u (B, m, r), s (B, r),
-    v (B, n, r), a (B, m), b (B, n) -> the same shapes."""
+    v (B, n, r), a (B, m), b (B, n) -> the same shapes.  Spans (``obs``) off
+    the fused route: ``brand_residual``, ``core_update``, ``brand_rotate``."""
     u, s, v = tsvd.u, tsvd.s, tsvd.v
 
     if method == "fused":
@@ -187,16 +189,19 @@ def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct", fmm_p: int
         unit = torch.where(ok[:, None], perp / torch.where(ok, nrm, 1.0)[:, None], 0.0)
         return p, unit, torch.where(ok, nrm, 0.0)
 
-    p_vec, p_unit, ra = _residual(u, a)
-    q_vec, q_unit, rb = _residual(v, b)
+    with span("brand_residual"):
+        p_vec, p_unit, ra = _residual(u, a)
+        q_vec, q_unit, rb = _residual(v, b)
 
-    s_aug = torch.cat([s, torch.zeros((bsz, 1), dtype=dt, device=u.device)], dim=1)
-    ak = torch.cat([p_vec, ra[:, None]], dim=1)
-    bk = torch.cat([q_vec, rb[:, None]], dim=1)
-    eye = torch.eye(r + 1, dtype=dt, device=u.device).expand(bsz, r + 1, r + 1)
-    res = _svd_update_impl(eye, s_aug, eye, ak, bk, method=method, fmm_p=fmm_p, sign_fix=True,
-                           deflate_rtol=deflate_rtol)
+        s_aug = torch.cat([s, torch.zeros((bsz, 1), dtype=dt, device=u.device)], dim=1)
+        ak = torch.cat([p_vec, ra[:, None]], dim=1)
+        bk = torch.cat([q_vec, rb[:, None]], dim=1)
+        eye = torch.eye(r + 1, dtype=dt, device=u.device).expand(bsz, r + 1, r + 1)
+    with span("core_update"):
+        res = _svd_update_impl(eye, s_aug, eye, ak, bk, method=method, fmm_p=fmm_p,
+                               sign_fix=True, deflate_rtol=deflate_rtol)
 
-    u_aug = torch.cat([u, p_unit[:, :, None]], dim=2)
-    v_aug = torch.cat([v, q_unit[:, :, None]], dim=2)
-    return TruncatedSvd(u=u_aug @ res.u[:, :, :r], s=res.s[:, :r], v=v_aug @ res.v[:, :, :r])
+    with span("brand_rotate"):
+        u_aug = torch.cat([u, p_unit[:, :, None]], dim=2)
+        v_aug = torch.cat([v, q_unit[:, :, None]], dim=2)
+        return TruncatedSvd(u=u_aug @ res.u[:, :, :r], s=res.s[:, :r], v=v_aug @ res.v[:, :, :r])

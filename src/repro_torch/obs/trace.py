@@ -1,25 +1,39 @@
 """Nestable span tracing → Chrome ``trace_event`` JSON (DESIGN.md §15).
 
-The port's own copy of ``repro.obs.trace`` (free of any framework).
+The port's counterpart of ``repro.obs.trace``: the same spans, events and
+exporters, and two things the reference's host spans cannot give.
 
-``span("flush_round")`` wraps a region of host-side control flow; spans nest
-naturally (reap inside flush inside pump), are thread-safe (one buffer,
-per-thread ``tid``), and run on the monotonic clock (``perf_counter_ns`` —
-immune to wall-clock steps).  Each completed span is one Chrome complete
-event (``"ph": "X"``, ``ts``/``dur`` in microseconds) so
-``chrome://tracing`` / Perfetto render the flush/merge timeline directly.
+``span("flush_round")`` wraps a region of the program; spans nest naturally
+(reap inside flush inside pump; the trackers' phases inside a train step),
+are thread-safe (one buffer, per-thread ``tid``), and with tracing on each
+one is three things at once:
+
+* a HOST event on the monotonic clock (``perf_counter_ns``, immune to
+  wall-clock steps): one Chrome complete event (``"ph": "X"``, ``ts``/``dur``
+  in microseconds), so ``chrome://tracing`` / Perfetto render the timeline.
+  Kernel launches are asynchronous, so the host event of a span around
+  device work measures the time to ENQUEUE it, not the device's time;
+* a PROFILER RANGE, ``torch.profiler.record_function("repro:<name>")``, open
+  for the span's lifetime: under any ``torch.profiler`` session the spans lie
+  in the exported trace beside the card's kernels and the runtime calls, on
+  the profiler's own clock (no profiler: the range records nothing);
+* with ``start_tracing(device=True)`` on a CUDA machine, DEVICE TIME: a pair
+  of CUDA events (from a reused pool) recorded on the current stream at enter
+  and exit, read only by ``device_times()``, which synchronizes once.  No
+  event is recorded while the current stream captures a CUDA graph, so a
+  captured region stays capturable.  Off CUDA the flag is ignored.
 
 Contract with the rest of the library:
 
 * When tracing is off (the default) ``span()`` returns a shared no-op
-  context manager — no clock read, no allocation, no lock.
-* Spans are HOST spans: they time the host's control flow on its monotonic
-  clock.  Kernel launches are asynchronous, so a span around a dispatch
-  measures the time to ENQUEUE the work, not the device's time to run it
-  (as in the reference, where a span around an async dispatch does the
-  same); the device's time shows in the ``reap`` span of the round that
-  waits for it.  Tracing never touches a tensor, so it cannot change a
-  result.
+  context manager — no clock read, no allocation, no lock, no profiler
+  range, no CUDA event.
+* Tracing never touches a tensor and launches nothing, so results and launch
+  counts are bitwise the same with it on or off.
+* Memory is bounded: past ``_MAX_EVENTS`` host events (or pending device
+  pairs) further ones are dropped and counted (``dropped_events()``, and
+  ``chrome_trace()``'s ``otherData``), so a reader can refuse a truncated
+  trace.
 * On span exit the duration is also fed to the metrics registry as a
   ``span_duration_us`` histogram labeled by span name (when metrics are
   enabled), so Prometheus sees the same taxonomy the trace file does.
@@ -30,6 +44,8 @@ from __future__ import annotations
 import json
 import threading
 import time
+
+import torch
 
 from repro_torch.obs import metrics as _metrics
 
@@ -42,12 +58,21 @@ __all__ = [
     "clear_trace",
     "save_chrome_trace",
     "chrome_trace",
+    "device_times",
+    "dropped_events",
+    "RANGE_PREFIX",
 ]
+
+RANGE_PREFIX = "repro:"        # the profiler range of span ``x`` is ``repro:x``
 
 _lock = threading.Lock()
 _events: list[dict] = []
 _tracing = False
+_device = False                # CUDA event pairs on spans (start_tracing(device=True))
 _MAX_EVENTS = 200_000          # drop (and count) beyond this — bounded memory
+_dropped = 0
+_pending: list[list] = []      # device spans in enter order: [name, args, ev0, ev1 | None]
+_pool: list = []               # CUDA events read by device_times(), for reuse
 
 
 def tracing() -> bool:
@@ -55,19 +80,28 @@ def tracing() -> bool:
     return _tracing
 
 
-def start_tracing() -> None:
-    global _tracing
+def start_tracing(device: bool = False) -> None:
+    """Turn spans on; ``device=True`` also times each span on the card (a
+    pair of CUDA events, see ``device_times``), ignored without CUDA."""
+    global _tracing, _device
+    _device = bool(device) and torch.cuda.is_available()
     _tracing = True
 
 
 def stop_tracing() -> None:
-    global _tracing
+    """Turn spans off; device spans already recorded stay readable."""
+    global _tracing, _device
     _tracing = False
+    _device = False
 
 
 def clear_trace() -> None:
+    """Forget every host event and device span, and the dropped count."""
+    global _dropped
     with _lock:
         _events.clear()
+        _pending.clear()
+        _dropped = 0
 
 
 def trace_events() -> list[dict]:
@@ -76,14 +110,50 @@ def trace_events() -> list[dict]:
         return list(_events)
 
 
+def dropped_events() -> int:
+    """Host events and device spans dropped past ``_MAX_EVENTS`` since the
+    last ``clear_trace()``."""
+    return _dropped
+
+
+def device_times() -> list[dict]:
+    """Each completed device-timed span, in the order the spans were entered,
+    as ``{"name", "ms", "args"}`` (``ms``: the card's time from the span's
+    enter to its exit on the stream it was entered on).  Synchronizes once;
+    the spans read are forgotten and their events reused.  Spans still open
+    stay for a later call."""
+    with _lock:
+        done = [r for r in _pending if r[3] is not None]
+        _pending[:] = [r for r in _pending if r[3] is None]
+    if not done:
+        return []
+    torch.cuda.synchronize()
+    out = [{"name": name, "ms": ev0.elapsed_time(ev1), "args": dict(args)}
+           for name, args, ev0, ev1 in done]
+    with _lock:
+        _pool.extend(ev for r in done for ev in r[2:])
+    return out
+
+
+def _record_event():
+    """A pooled CUDA event recorded on the current stream."""
+    with _lock:
+        ev = _pool.pop() if _pool else None
+    if ev is None:
+        ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
 class _Span:
-    """Live span: records ts on enter, emits one 'X' event on exit.
+    """Live span: on enter the host clock, the profiler range and (device
+    tracing) the first event; on exit the same in reverse, one 'X' event.
 
     ``set(key=value)`` attaches args visible in the trace viewer (merge
     levels attach pair counts and wire bytes this way).
     """
 
-    __slots__ = ("name", "args", "_t0")
+    __slots__ = ("name", "args", "_t0", "_range", "_dev")
 
     def __init__(self, name: str, args: dict):
         self.name = name
@@ -94,10 +164,26 @@ class _Span:
         return self
 
     def __enter__(self) -> "_Span":
+        global _dropped
         self._t0 = time.perf_counter_ns()
+        self._range = torch.profiler.record_function(RANGE_PREFIX + self.name)
+        self._range.__enter__()
+        self._dev = None
+        if _device and not torch.cuda.is_current_stream_capturing():
+            rec = [self.name, self.args, _record_event(), None]
+            with _lock:
+                if len(_pending) < _MAX_EVENTS:
+                    _pending.append(rec)
+                    self._dev = rec
+                else:
+                    _dropped += 1
         return self
 
     def __exit__(self, *exc) -> None:
+        global _dropped
+        if self._dev is not None:
+            self._dev[3] = _record_event()
+        self._range.__exit__(*exc)
         t1 = time.perf_counter_ns()
         ts_us = self._t0 / 1e3
         dur_us = (t1 - self._t0) / 1e3
@@ -114,6 +200,8 @@ class _Span:
         with _lock:
             if len(_events) < _MAX_EVENTS:
                 _events.append(ev)
+            else:
+                _dropped += 1
         from repro_torch import obs as _obs
         if _obs.enabled():
             _span_histogram(self.name).observe(dur_us)
@@ -172,10 +260,12 @@ def span(name: str, **args):
 
 
 def chrome_trace() -> str:
-    """The collected spans as a Chrome ``trace_event`` JSON document."""
+    """The collected spans as a Chrome ``trace_event`` JSON document; its
+    ``otherData`` says how many events were dropped (``dropped_events()``)."""
     with _lock:
-        evs = list(_events)
-    return json.dumps({"traceEvents": evs, "displayTimeUnit": "ms"})
+        evs, dropped = list(_events), _dropped
+    return json.dumps({"traceEvents": evs, "displayTimeUnit": "ms",
+                       "otherData": {"dropped_events": dropped}})
 
 
 def save_chrome_trace(path) -> str:

@@ -32,6 +32,7 @@ from repro_torch.api import SvdState, UpdatePolicy, as_state, update as api_upda
 from repro_torch.api.policy import policy_from_legacy
 from repro_torch.api.state import generator_device
 from repro_torch.core.engine import group_indices, stack_trees, unstack_tree
+from repro_torch.obs.trace import span
 
 __all__ = [
     "SpectralState",
@@ -106,7 +107,9 @@ def spectral_update_basis_grouped(
     """Batched basis update: parameters sharing (m, n, rank, dtype) are
     stacked and their trackers updated by one batched ``api.update`` — B
     rank-1 updates for one plan.  ``policy.mesh`` (or the legacy ``mesh=``)
-    spreads each group's batch over the mesh's batch axis."""
+    spreads each group's batch over the mesh's batch axis.  Spans (``obs``):
+    ``tracker_group`` (args m, n, rank, batch) around each group, and
+    ``power_iter`` around its rank-1 estimate of the gradients."""
     if len(states) != len(grads):
         raise ValueError("states and grads must pair up")
     pol = policy_from_legacy(policy, method, mesh=mesh, batch_axis=batch_axis)
@@ -121,16 +124,19 @@ def spectral_update_basis_grouped(
 
     out: list[SpectralState | None] = [None] * len(states)
     for idxs in group_indices(keys).values():
-        stacked = SpectralState(
-            tracker=stack_trees([as_state(states[i].tracker) for i in idxs]),
-            power_v=torch.stack([states[i].power_v for i in idxs]),
-            step=torch.stack([states[i].step for i in idxs]))
-        g_stack = torch.stack([grads[i] for i in idxs])
-        tr, a_vec, b_vec, v_new = _rank1_of_grad(stacked, g_stack, decay)
-        tr = api_update(tr, a_vec, b_vec, pol)
-        for j, i in enumerate(idxs):
-            out[i] = SpectralState(tracker=unstack_tree(tr, j), power_v=v_new[j],
-                                   step=stacked.step[j] + 1)
+        m, n, rank, _ = keys[idxs[0]]
+        with span("tracker_group", m=m, n=n, rank=rank, batch=len(idxs)):
+            stacked = SpectralState(
+                tracker=stack_trees([as_state(states[i].tracker) for i in idxs]),
+                power_v=torch.stack([states[i].power_v for i in idxs]),
+                step=torch.stack([states[i].step for i in idxs]))
+            g_stack = torch.stack([grads[i] for i in idxs])
+            with span("power_iter"):
+                tr, a_vec, b_vec, v_new = _rank1_of_grad(stacked, g_stack, decay)
+            tr = api_update(tr, a_vec, b_vec, pol)
+            for j, i in enumerate(idxs):
+                out[i] = SpectralState(tracker=unstack_tree(tr, j), power_v=v_new[j],
+                                       step=stacked.step[j] + 1)
     return tuple(out)
 
 

@@ -20,6 +20,9 @@ Other parameters (norms, biases, the decoder's stacked 3-D layer weights,
 small matrices) fall through to dense AdamW.  There is no gradient
 clipping on this path, as in the reference.
 
+Spans (``obs``): ``trackers`` around step 1 (all groups), ``refresh`` around
+the basis refresh, ``moments`` around steps 2-3 and dense AdamW.
+
 Basis refresh (``basis_refresh_every``): every N steps each tracker passes
 through ``compression.agree_tracker``; with a process group (``axis_name``)
 that merges the per-worker trackers into one consensus, without one it is a
@@ -40,6 +43,7 @@ import torch
 from repro_torch._tree import flatten_up_to, tree_leaves, tree_unflatten
 from repro_torch.api.state import generator_device
 from repro_torch.core.engine import group_indices, stack_trees, unstack_tree
+from repro_torch.obs.trace import span
 from repro_torch.optim.adamw import bias_corrections
 from repro_torch.optim.compression import agree_tracker
 from repro_torch.optim.spectral import (
@@ -127,30 +131,33 @@ def spectral_adam_update(grads, state: SpectralAdamState, params, *, lr, betas=(
     if elig:
         updated = [flat_s[i].spectral for i in elig]
         if host_step % update_basis_every == 0:
-            updated = list(spectral_update_basis_grouped(
-                updated, [flat_g[i].float() for i in elig]))
+            with span("trackers"):
+                updated = list(spectral_update_basis_grouped(
+                    updated, [flat_g[i].float() for i in elig]))
         if basis_refresh_every and host_step % basis_refresh_every == 0:
-            updated = _refresh(updated, axis_name)
+            with span("refresh"):
+                updated = _refresh(updated, axis_name)
         new_specs = dict(zip(elig, updated))
 
     new_p, new_s = [], []
-    for i, (g, p, s) in enumerate(zip(flat_g, flat_p, flat_s)):
-        gf = g.float()
-        pf = p.float()
-        if s.spectral is not None:
-            spec = new_specs[i]
-            gp = project(spec, gf)                          # (r, n)
-            m2 = b1 * s.m + (1 - b1) * gp
-            v2 = b2 * s.v + (1 - b2) * gp * gp
-            upd_p = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-            delta = unproject(spec, upd_p)                  # (m, n)
-            new_s.append(_LeafState(spectral=spec, m=m2, v=v2))
-        else:
-            m2 = b1 * s.m + (1 - b1) * gf
-            v2 = b2 * s.v + (1 - b2) * gf * gf
-            delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-            new_s.append(_LeafState(spectral=None, m=m2, v=v2))
-        new_p.append((pf - lr * (delta + weight_decay * pf)).to(p.dtype))
+    with span("moments"):
+        for i, (g, p, s) in enumerate(zip(flat_g, flat_p, flat_s)):
+            gf = g.float()
+            pf = p.float()
+            if s.spectral is not None:
+                spec = new_specs[i]
+                gp = project(spec, gf)                          # (r, n)
+                m2 = b1 * s.m + (1 - b1) * gp
+                v2 = b2 * s.v + (1 - b2) * gp * gp
+                upd_p = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+                delta = unproject(spec, upd_p)                  # (m, n)
+                new_s.append(_LeafState(spectral=spec, m=m2, v=v2))
+            else:
+                m2 = b1 * s.m + (1 - b1) * gf
+                v2 = b2 * s.v + (1 - b2) * gf * gf
+                delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+                new_s.append(_LeafState(spectral=None, m=m2, v=v2))
+            new_p.append((pf - lr * (delta + weight_decay * pf)).to(p.dtype))
 
     return (tree_unflatten(grads, new_p),
             SpectralAdamState(step=step, leaves=tree_unflatten(grads, [(l,) for l in new_s])))

@@ -54,6 +54,7 @@ from repro_torch.data.synthetic import batch_for_step
 from repro_torch.dist.mesh import check_mesh
 from repro_torch.dist.sharding import batch_pspecs
 from repro_torch.models.registry import ModelApi, build_model
+from repro_torch.obs.trace import span
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, global_norm
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.optim.spectral_adam import spectral_adam_init, spectral_adam_update
@@ -143,25 +144,31 @@ def train_step(api: ModelApi, opt: OptimizerConfig, params, opt_state, batch, st
     the pre-clip gradient norm as 0-dim tensors on the card (nothing is read
     back).  The spectral path does not clip, as in the reference.  With
     ``mesh`` the batch is split over its ``data`` axis
-    (``mesh_loss_and_grads``)."""
-    if mesh is None:
-        loss, grads = loss_and_grads(api, params, batch)
-    else:
-        loss, grads = mesh_loss_and_grads(api, params, batch, mesh)
-    lr = warmup_cosine(step, base_lr=opt.lr, warmup_steps=opt.warmup_steps,
-                       total_steps=opt.total_steps)
-    with torch.no_grad():
-        if spectral:
-            # basis_refresh_every: the local re-factorisation (no group: the
-            # gradients are already the global ones)
-            new_params, new_state = spectral_adam_update(
-                grads, opt_state, params, lr=lr, betas=opt.betas, eps=opt.eps,
-                weight_decay=opt.weight_decay, basis_refresh_every=opt.basis_refresh_every)
-            gnorm = global_norm(grads)
-        else:
-            new_params, new_state, gnorm = adamw_update(
-                grads, opt_state, params, lr=lr, betas=opt.betas, eps=opt.eps,
-                weight_decay=opt.weight_decay, grad_clip=opt.grad_clip)
+    (``mesh_loss_and_grads``).  Spans (``obs``): ``train_step`` around it all,
+    ``fwd_bwd`` and ``optimizer`` around its two parts."""
+    with span("train_step"):
+        with span("fwd_bwd"):
+            if mesh is None:
+                loss, grads = loss_and_grads(api, params, batch)
+            else:
+                loss, grads = mesh_loss_and_grads(api, params, batch, mesh)
+        lr = warmup_cosine(step, base_lr=opt.lr, warmup_steps=opt.warmup_steps,
+                           total_steps=opt.total_steps)
+        with torch.no_grad():
+            if spectral:
+                # basis_refresh_every: the local re-factorisation (no group: the
+                # gradients are already the global ones)
+                with span("optimizer"):
+                    new_params, new_state = spectral_adam_update(
+                        grads, opt_state, params, lr=lr, betas=opt.betas, eps=opt.eps,
+                        weight_decay=opt.weight_decay,
+                        basis_refresh_every=opt.basis_refresh_every)
+                gnorm = global_norm(grads)
+            else:
+                with span("optimizer"):
+                    new_params, new_state, gnorm = adamw_update(
+                        grads, opt_state, params, lr=lr, betas=opt.betas, eps=opt.eps,
+                        weight_decay=opt.weight_decay, grad_clip=opt.grad_clip)
     return new_params, new_state, loss, gnorm
 
 

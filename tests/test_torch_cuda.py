@@ -1343,3 +1343,36 @@ def test_reshard_onto_a_card_mesh_is_bitwise(cuda_device):
             assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
     with pytest.raises(ValueError, match="does not evenly divide"):
         reshard(host, make_host_mesh(3, 1, device=cuda_device))
+
+
+def test_span_device_times_on_the_card(cuda_device):
+    """``obs.start_tracing(device=True)``: each span's card time, in enter
+    order; a span inside a CUDA graph's capture records no event (the
+    capture succeeds and replays)."""
+    from repro_torch import obs
+
+    x = torch.randn(2048, 2048, device=cuda_device)
+    torch.cuda.synchronize()
+    obs.clear_trace()
+    obs.start_tracing(device=True)
+    try:
+        with obs.span("outer", k=8):
+            with obs.span("mm"):
+                y = x
+                for _ in range(8):
+                    y = (y @ x) / 2048 ** 0.5
+        static = x.clone()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with obs.span("captured"):
+                static.mul_(2.0)
+        graph.replay()
+    finally:
+        obs.stop_tracing()
+    times = obs.device_times()
+    obs.clear_trace()
+    assert [(t["name"], t["args"]) for t in times] == [("outer", {"k": 8}), ("mm", {})]
+    assert 0 < times[1]["ms"] <= times[0]["ms"]
+    torch.cuda.synchronize()
+    assert torch.equal(static, x * 2.0)

@@ -210,6 +210,184 @@ def test_span_feeds_duration_histogram_when_enabled():
     assert h is not None and h.count == 1
 
 
+# -- spans the profiler sees, and the card's time on request ------------------------
+
+
+def _tiny_spectral_step():
+    """One spectral-Adam ``train_step`` on the port's granite smoke config
+    (rank 4, the refresh due), as a call that returns its outputs' leaves."""
+    from repro_torch import configs
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.spectral_adam import spectral_adam_init
+    from repro_torch.train import loop
+
+    cfg = configs.get_smoke("granite-34b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    state = spectral_adam_init(torch.Generator().manual_seed(1), params, rank=4, device="cpu")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10, spectral_rank=4,
+                          basis_refresh_every=1)
+    batch = batch_for_step(0, 0, batch=2, seq=16, vocab=cfg.vocab_size, device="cpu")
+    return lambda: tree_leaves(loop.train_step(model, opt, params, state, batch, 0,
+                                               spectral=True))
+
+
+class _FakeEvent:
+    """A CUDA event on the CPU: ``record`` reads a clock that ticks 1 ms a
+    record; counts the events made."""
+
+    made = 0
+    clock = 0.0
+
+    def __init__(self, enable_timing=False):
+        type(self).made += 1
+        self.t = None
+
+    def record(self, stream=None):
+        type(self).clock += 1.0
+        self.t = type(self).clock
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def _no_event(*args, **kwargs):
+    raise AssertionError("a CUDA event was made")
+
+
+def test_spans_nest_in_the_profilers_trace(tmp_path):
+    """The program's spans are profiler ranges: a train step's chain down to
+    the deflation nests by time in the exported trace, with the aten ops
+    inside."""
+    step = _tiny_spectral_step()
+    obs.start_tracing()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step()
+    obs.stop_tracing()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    evs = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+
+    def ranges(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in evs
+                if e["name"] == obs.trace.RANGE_PREFIX + name]
+
+    chain = ["train_step", "optimizer", "trackers", "tracker_group", "core_update", "deflate"]
+    for outer, inner in zip(chain, chain[1:]):
+        assert ranges(inner), inner
+        for i0, i1 in ranges(inner):
+            assert any(o0 <= i0 and i1 <= o1 for o0, o1 in ranges(outer)), (outer, inner)
+    d0, d1 = ranges("deflate")[0]
+    assert any(e.get("cat") == "cpu_op" and e["name"].startswith("aten::")
+               and d0 <= e["ts"] and e["ts"] + e["dur"] <= d1 for e in evs)
+
+
+def test_tracing_off_enters_no_range_and_makes_no_event(monkeypatch):
+    counts = {"ranges": 0}
+    real = torch.profiler.record_function
+
+    class CountedRange(real):
+        def __enter__(self):
+            counts["ranges"] += 1
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.profiler, "record_function", CountedRange)
+    monkeypatch.setattr(torch.cuda, "Event", _no_event)
+    step = _tiny_spectral_step()
+    step()
+    assert counts["ranges"] == 0 and obs.trace_events() == []
+    obs.start_tracing()
+    step()
+    obs.stop_tracing()
+    assert counts["ranges"] == len(obs.trace_events()) > 60
+
+
+def test_device_tracing_without_a_card_is_host_only(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "Event", _no_event)
+    obs.start_tracing(device=True)
+    with obs.span("outer", m=3):
+        with obs.span("inner"):
+            torch.ones(3).sum()
+    obs.stop_tracing()
+    assert [e["name"] for e in obs.trace_events()] == ["inner", "outer"]
+    assert obs.device_times() == []
+
+
+def test_device_times_order_pool_and_graph_capture(monkeypatch):
+    """Device spans (CUDA events faked on the CPU): read in enter order with
+    their args, open spans left for a later read, one synchronize a read,
+    nothing recorded while a graph is captured, events reused."""
+    capturing = [False]
+    syncs = [0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.__setitem__(0, syncs[0] + 1))
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(_FakeEvent, "made", 0)
+    monkeypatch.setattr(_FakeEvent, "clock", 0.0)
+
+    obs.start_tracing(device=True)
+    with obs.span("outer", m=4) as sp:
+        with obs.span("inner"):
+            pass
+        with obs.span("open"):
+            first = obs.device_times()
+        sp.set(n=5)
+    capturing[0] = True
+    with obs.span("captured"):
+        pass
+    capturing[0] = False
+    second = obs.device_times()
+    assert [(t["name"], t["ms"], t["args"]) for t in first] == [("inner", 1.0, {})]
+    assert [(t["name"], t["ms"], t["args"]) for t in second] == [
+        ("outer", 5.0, {"m": 4, "n": 5}), ("open", 1.0, {})]
+    # the first read's two events served the last two records
+    assert syncs[0] == 2 and _FakeEvent.made == 4
+    assert [e["name"] for e in obs.trace_events()] == ["inner", "open", "outer", "captured"]
+    for _ in range(2):
+        with obs.span("again"):
+            pass
+    obs.stop_tracing()
+    assert [t["name"] for t in obs.device_times()] == ["again"] * 2
+    assert _FakeEvent.made == 4 and obs.device_times() == [] and syncs[0] == 3
+
+
+@pytest.mark.parametrize("case", ["train_step", "direct_update"])
+def test_tracing_is_bitwise_invisible(case):
+    if case == "train_step":
+        run = _tiny_spectral_step()
+    else:
+        st = _state(rank=4)
+        a, b = _event()
+        pol = api.UpdatePolicy(method="direct")
+        run = lambda: [getattr(api.update(st, a, b, pol), f) for f in "usv"]  # noqa: E731
+    off = run()
+    obs.start_tracing(device=True)
+    on = run()
+    obs.stop_tracing()
+    assert {"core_update", "deflate", "givens"} <= {e["name"] for e in obs.trace_events()}
+    assert len(off) == len(on)
+    for x, y in zip(off, on):
+        assert torch.equal(x, y)
+
+
+def test_dropped_events_are_counted(monkeypatch):
+    monkeypatch.setattr(obs.trace, "_MAX_EVENTS", 2)
+    obs.start_tracing()
+    for _ in range(5):
+        with obs.span("x"):
+            pass
+    obs.stop_tracing()
+    assert len(obs.trace_events()) == 2 and obs.dropped_events() == 3
+    assert json.loads(obs.chrome_trace())["otherData"] == {"dropped_events": 3}
+    obs.clear_trace()
+    assert obs.dropped_events() == 0
+
+
 # -- zero overhead when disabled ---------------------------------------------------------
 
 
