@@ -8,15 +8,24 @@ removes it for single updates.  ``method="fused"`` hands the whole update to
 ``kernels.ops`` (the fused CUDA kernels on a card); ``method="fmm"`` runs the
 eigen-updates' Cauchy products through the Chebyshev FMM (``core.fmm``) at
 order ``fmm_p``.
+
+The truncated update's (r+1) core is replayed from a CUDA graph
+(``core.graph``) on a card, on the ``direct`` route, for r + 1 <=
+``secular.GIVENS_LOOP_MAX``, from the second call with its key (device,
+dtype, batch, r + 1, ``deflate_rtol``, matmul precision) on; a replay enters
+the ``core_update`` span alone, an eager call and the capture also its
+phases' spans.  The full update and every other route run eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.eigh_update import apply_update, eigenvalues, make_plan, materialize_q
+from repro_torch.core.graph import CORE_GRAPHS
 from repro_torch.obs.trace import span
 
 __all__ = ["SvdUpdateResult", "TruncatedSvd"]
@@ -154,12 +163,29 @@ def _svd_update_impl(u, s, v, a, b, *, method: str = "direct", fmm_p: int = 20,
     return SvdUpdateResult(u=u_n, s=s_n, v=v_n, d_left=d_left_s, d_right=d_right_s)
 
 
+def _core_usv(s_aug, ak, bk, *, method, fmm_p, deflate_rtol):
+    """Algorithm 6.1 on Brand's (B, k, k) core: identity factors, the
+    augmented spectrum ``s_aug`` and the pair's coordinates ``ak``, ``bk``."""
+    bsz, k = s_aug.shape
+    eye = torch.eye(k, dtype=s_aug.dtype, device=s_aug.device).expand(bsz, k, k)
+    res = _svd_update_impl(eye, s_aug, eye, ak, bk, method=method, fmm_p=fmm_p,
+                           sign_fix=True, deflate_rtol=deflate_rtol)
+    return res.u, res.s, res.v
+
+
 def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct", fmm_p: int = 20,
                                deflate_rtol: float | None = None,
                                compute_dtype=None) -> TruncatedSvd:
     """Brand augmentation around Algorithm 6.1: u (B, m, r), s (B, r),
     v (B, n, r), a (B, m), b (B, n) -> the same shapes.  Spans (``obs``) off
-    the fused route: ``brand_residual``, ``core_update``, ``brand_rotate``."""
+    the fused route: ``brand_residual``, ``core_update``, ``brand_rotate``.
+
+    The core runs through ``core.graph.CORE_GRAPHS``: on a card, on
+    ``direct`` and for r + 1 <= ``GIVENS_LOOP_MAX``, the second call with a
+    core key captures it as a CUDA graph and every later one replays it, with
+    the same kernels in the same order.  Under a replay ``core_update`` holds
+    no child span; eager calls and the capture enter ``deflate``,
+    ``secular_solve``, ``loewner``, ``givens`` and ``cauchy_product`` in it."""
     u, s, v = tsvd.u, tsvd.s, tsvd.v
 
     if method == "fused":
@@ -196,12 +222,12 @@ def _svd_update_truncated_impl(tsvd, a, b, *, method: str = "direct", fmm_p: int
         s_aug = torch.cat([s, torch.zeros((bsz, 1), dtype=dt, device=u.device)], dim=1)
         ak = torch.cat([p_vec, ra[:, None]], dim=1)
         bk = torch.cat([q_vec, rb[:, None]], dim=1)
-        eye = torch.eye(r + 1, dtype=dt, device=u.device).expand(bsz, r + 1, r + 1)
     with span("core_update"):
-        res = _svd_update_impl(eye, s_aug, eye, ak, bk, method=method, fmm_p=fmm_p,
-                               sign_fix=True, deflate_rtol=deflate_rtol)
+        core = functools.partial(_core_usv, method=method, fmm_p=fmm_p, deflate_rtol=deflate_rtol)
+        cu, cs, cv = CORE_GRAPHS.run(core, s_aug, ak, bk, method=method,
+                                     deflate_rtol=deflate_rtol)
 
     with span("brand_rotate"):
         u_aug = torch.cat([u, p_unit[:, :, None]], dim=2)
         v_aug = torch.cat([v, q_unit[:, :, None]], dim=2)
-        return TruncatedSvd(u=u_aug @ res.u[:, :, :r], s=res.s[:, :r], v=v_aug @ res.v[:, :, :r])
+        return TruncatedSvd(u=u_aug @ cu[:, :, :r], s=cs[:, :r], v=v_aug @ cv[:, :, :r])

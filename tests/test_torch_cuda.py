@@ -1376,3 +1376,97 @@ def test_span_device_times_on_the_card(cuda_device):
     assert 0 < times[1]["ms"] <= times[0]["ms"]
     torch.cuda.synchronize()
     assert torch.equal(static, x * 2.0)
+
+
+# -- the truncated update's core replayed from a CUDA graph (core.graph) -----------------
+
+
+def _core_graph_problem(rng, bsz, m, n, r, dtype, device):
+    """Rank-r states whose (r+1) cores have repeated poles and zero ``z``
+    entries: the deflation both rotates and drops coordinates."""
+    u = np.stack([np.linalg.qr(rng.normal(size=(m, r)))[0] for _ in range(bsz)])
+    v = np.stack([np.linalg.qr(rng.normal(size=(n, r)))[0] for _ in range(bsz)])
+    s = np.tile(np.geomspace(10.0, 0.1, r), (bsz, 1))
+    s[:, 3:6] = s[:, 3:4]
+    ca, cb = rng.normal(size=(bsz, r)), rng.normal(size=(bsz, r))
+    ca[:, [1, 7]] = cb[:, [1, 7]] = 0.0
+    a, b = ((w @ c[:, :, None] + 0.1 * (e - w @ (w.transpose(0, 2, 1) @ e)))[:, :, 0]
+            for w, c, e in ((u, ca, rng.normal(size=(bsz, m, 1))),
+                            (v, cb, rng.normal(size=(bsz, n, 1)))))
+    return [t(x, dtype, device) for x in (u, s, v, a, b)]
+
+
+def _core_graph_counts():
+    from repro_torch import obs
+
+    return tuple(getattr(obs.registry().get(f"svd_core_graph_{k}"), "value", 0)
+                 for k in ("captures", "replays", "fallbacks"))
+
+
+@pytest.fixture
+def core_graphs():
+    """An empty graph cache and a fresh, enabled metrics registry."""
+    from repro_torch import obs
+    from repro_torch.core.graph import CORE_GRAPHS
+    from repro_torch.obs import metrics as obs_metrics
+
+    CORE_GRAPHS.clear()
+    prev = obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    obs.enable()
+    try:
+        yield CORE_GRAPHS
+    finally:
+        obs.disable()
+        obs_metrics.set_registry(prev)
+        CORE_GRAPHS.clear()
+
+
+def _truncated(prob):
+    from repro_torch.core.svd_update import TruncatedSvd, _svd_update_truncated_impl
+
+    u, s, v, a, b = prob
+    return _svd_update_truncated_impl(TruncatedSvd(u, s, v), a, b, method="direct")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bsz", [1, 4])
+def test_core_graph_replay_equals_eager_bitwise(cuda_device, core_graphs, dtype, bsz):
+    """At k = 33 the replayed core gives the eager update's bits, and a call
+    whose inputs differ from the captured call's returns its own result."""
+    rng = np.random.default_rng(120 + bsz)
+    p, x = (_core_graph_problem(rng, bsz, 48, 72, 32, dtype, cuda_device) for _ in range(2))
+    want_x = _truncated(x)                  # first sighting: eager
+    core_graphs.clear()
+    want_p = _truncated(p)                  # eager again, for p
+    got = [_truncated(p), _truncated(x), _truncated(p)]     # capture, then replays
+    assert _core_graph_counts() == (1, 3, 0)
+    for g, w in zip(got, (want_p, want_x, want_p)):
+        assert all(torch.equal(gf, wf) for gf, wf in zip(g, w))
+    assert not torch.equal(got[0].s, got[1].s)
+
+
+def test_core_graph_shared_across_state_shapes(cuda_device, core_graphs):
+    """Two truncated states of other (m, n) with one core key: one capture,
+    then replays, each equal to the eager update to the bit."""
+    rng = np.random.default_rng(130)
+    probs = [_core_graph_problem(rng, 1, m, n, 32, torch.float32, cuda_device)
+             for m, n in ((40, 64), (96, 80))]
+    want = []
+    for prob in probs:
+        core_graphs.clear()
+        want.append(_truncated(prob))
+    core_graphs.clear()
+    for i in range(6):
+        got = _truncated(probs[i % 2])
+        assert all(torch.equal(g, w) for g, w in zip(got, want[i % 2]))
+    assert _core_graph_counts() == (1, 5, 0)
+
+
+def test_core_graph_never_captures_above_the_givens_limit(cuda_device, core_graphs):
+    """k = 65 > GIVENS_LOOP_MAX: the Givens loop asks the host, so the core
+    stays eager on every call."""
+    rng = np.random.default_rng(131)
+    prob = _core_graph_problem(rng, 2, 80, 96, 64, torch.float32, cuda_device)
+    outs = [_truncated(prob) for _ in range(3)]
+    assert _core_graph_counts() == (0, 0, 0)
+    assert all(torch.equal(g, w) for g, w in zip(outs[2], outs[0]))

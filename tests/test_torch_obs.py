@@ -474,6 +474,35 @@ def test_engine_counters_match_cache_info():
     assert reg.get("engine_plan_cache_hits").value == info.hits == 1
 
 
+def test_core_graph_counters_stay_zero_on_the_cpu():
+    """On the CPU the truncated update's core never goes to a CUDA graph: its
+    three counters stay at 0 and the update equals Brand's augmentation
+    around the eager core, call after call."""
+    from repro_torch.core.svd_update import TruncatedSvd, _svd_update_impl, _svd_update_truncated_impl
+
+    obs.enable()
+    rng = np.random.default_rng(8)
+    m, n, r = 12, 9, 4
+    u = torch.as_tensor(np.linalg.qr(rng.standard_normal((m, r)))[0])[None]
+    v = torch.as_tensor(np.linalg.qr(rng.standard_normal((n, r)))[0])[None]
+    s = torch.as_tensor(np.geomspace(10.0, 1.0, r))[None]
+    a, b = (torch.as_tensor(x)[None] for x in _event(m, n, rng))
+    p, q = ((basis.mT @ x[:, :, None])[:, :, 0] for basis, x in ((u, a), (v, b)))
+    pp, qq = a - (u @ p[:, :, None])[:, :, 0], b - (v @ q[:, :, None])[:, :, 0]
+    ra, rb = pp.norm(dim=1), qq.norm(dim=1)
+    eye = torch.eye(r + 1, dtype=u.dtype).expand(1, r + 1, r + 1)
+    core = _svd_update_impl(eye, torch.cat([s, torch.zeros(1, 1, dtype=s.dtype)], dim=1), eye,
+                            torch.cat([p, ra[:, None]], dim=1), torch.cat([q, rb[:, None]], dim=1))
+    want = TruncatedSvd(torch.cat([u, (pp / ra)[:, :, None]], dim=2) @ core.u[:, :, :r],
+                        core.s[:, :r], torch.cat([v, (qq / rb)[:, :, None]], dim=2) @ core.v[:, :, :r])
+    for _ in range(3):
+        got = _svd_update_truncated_impl(TruncatedSvd(u, s, v), a, b, method="direct")
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    reg = obs.registry()
+    for name in ("svd_core_graph_captures", "svd_core_graph_replays", "svd_core_graph_fallbacks"):
+        assert getattr(reg.get(name), "value", 0) == 0, name
+
+
 def test_planner_counters_match_schedule_cache_info():
     obs.enable()
     obs.start_tracing()
