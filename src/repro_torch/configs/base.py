@@ -5,7 +5,9 @@ defaults and values, so a config built here equals the reference's field by
 field.  One ``ModelConfig`` describes any architecture in the assigned pool;
 family-specific blocks live in optional sub-configs.  Exact production
 configs are in ``repro_torch/configs/<arch>.py``; every arch also exposes
-``smoke()`` — a reduced same-family config for CPU tests.
+``smoke()`` — a reduced same-family config for CPU tests.  The port's own
+options (``MoEPortConfig``, ``MLAPortConfig``) are subclasses that a config
+uses in place of the reference's sub-configs.
 """
 
 from __future__ import annotations
@@ -34,6 +36,54 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+# The port's own options, beyond the reference's fields: subclasses, so that a
+# config without them equals the reference's field by field.  Every option
+# defaults off; a default instance computes what its base class computes.
+
+
+@dataclass(frozen=True)
+class MoEPortConfig(MoEConfig):
+    """``MoEConfig`` with DeepSeek-V2's options and an expert share.
+
+    * ``n_held`` experts, from index ``held_start``, live in this layer (0:
+      all ``n_routed``): the router keeps its ``n_routed`` outputs and top-k,
+      and the layer computes only its held experts' part for the choices that
+      land on them (one device's share of an expert-parallel group; what the
+      absent experts would add is left out);
+    * ``norm_topk``: renormalise the top-k gates to sum to one;
+    * ``first_dense``: the first layers of the decoder are dense MLPs of
+      ``ModelConfig.d_ff`` (DeepSeek's ``first_k_dense_replace``);
+    * ``seq_aux_alpha``: the sequence-wise balance loss's weight (0: off),
+      added to the train loss once for each MoE layer.
+    """
+
+    n_held: int = 0
+    held_start: int = 0
+    norm_topk: bool = True
+    first_dense: int = 0
+    seq_aux_alpha: float = 0.0
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """DeepSeek-V2's YaRN rope scaling (the config's ``rope_scaling``)."""
+
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+
+@dataclass(frozen=True)
+class MLAPortConfig(MLAConfig):
+    """``MLAConfig`` with YaRN on the rope dimensions (``yarn`` None: plain
+    RoPE)."""
+
+    yarn: YarnConfig | None = None
 
 
 @dataclass(frozen=True)

@@ -49,8 +49,9 @@ AXIS_SIZES: dict[str, int] = {"pod": 2, "data": 16, "model": 16}
 #: Tree keys whose children are layer stacks (the reference's ``lax.scan``
 #: axis): their leading depth axis is never sharded.  The port's trees keep
 #: the reference's keys (``convert.params_from_reference`` maps them one to
-#: one).
-_STACKED_KEYS = frozenset({"layers", "groups", "tail", "blocks", "enc_layers", "dec_layers"})
+#: one), and the port's ``dense_layers`` (``MoEPortConfig.first_dense``).
+_STACKED_KEYS = frozenset({"layers", "groups", "tail", "blocks", "enc_layers", "dec_layers",
+                           "dense_layers"})
 
 
 def _is_leaf(x) -> bool:

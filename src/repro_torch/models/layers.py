@@ -16,6 +16,8 @@ here sets it).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -30,6 +32,8 @@ __all__ = [
     "mlp_apply",
     "rope_freqs",
     "rope_apply",
+    "yarn_mscale",
+    "yarn_range",
     "embed_init",
     "embed_lookup",
     "unembed",
@@ -184,19 +188,54 @@ def mlp_apply(x, p, mlp_type, compute_dtype):
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim, theta, device=None):
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``: 0.1 m ln(s) + 1 (1 when s <= 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_range(head_dim, theta, yarn) -> tuple[int, int]:
+    """The rotary pairs' ramp ends ``(lo, hi)``: pair i below ``lo`` keeps its
+    frequency, from ``hi`` on it is divided by the factor.  The correction
+    dimension of ``beta`` rotations over the original context L0 is
+    ``d ln(L0 / (2 pi beta)) / (2 ln theta)``."""
+    def corr(beta):
+        return head_dim * math.log(yarn.original_max_position / (2 * math.pi * beta)) \
+            / (2 * math.log(theta))
+
+    return (max(math.floor(corr(yarn.beta_fast)), 0),
+            min(math.ceil(corr(yarn.beta_slow)), head_dim - 1))
+
+
+def rope_freqs(head_dim, theta, device=None, yarn=None):
+    """The rotary inverse frequencies ``theta^(-2i/d)``; with ``yarn``
+    (``configs.base.YarnConfig``) DeepSeek-V2's YaRN blend of them with the
+    same divided by the factor, along a linear ramp over pairs ``yarn_range``."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(float(theta), exps)  # (half,)
+    extra = 1.0 / torch.pow(float(theta), exps)  # (half,)
+    if yarn is None:
+        return extra
+    inter = 1.0 / (yarn.factor * torch.pow(float(theta), exps))
+    lo, hi = yarn_range(head_dim, theta, yarn)
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - lo)
+            / ((hi - lo) or 0.001)).clamp(0.0, 1.0)
+    return inter * ramp + extra * (1.0 - ramp)
 
 
-def rope_apply(x, positions, theta):
-    """x: (..., seq, heads, head_dim); positions: (..., seq) int32."""
+def rope_apply(x, positions, theta, yarn=None):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int32.  With
+    ``yarn`` the frequencies are ``rope_freqs``' blend and cos and sin are
+    scaled by ``yarn_mscale(s, mscale) / yarn_mscale(s, mscale_all_dim)``."""
     half = x.shape[-1] // 2
-    inv = rope_freqs(x.shape[-1], theta, device=x.device)
+    inv = rope_freqs(x.shape[-1], theta, device=x.device, yarn=yarn)
     ang = positions[..., :, None].float() * inv[None, :]  # (..., seq, half)
     sin = torch.sin(ang)[..., :, None, :]
     cos = torch.cos(ang)[..., :, None, :]
+    if yarn is not None:
+        mscale = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(yarn.factor,
+                                                                    yarn.mscale_all_dim)
+        if mscale != 1.0:
+            sin, cos = sin * mscale, cos * mscale
     x1 = x[..., :half].float()
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -8,9 +8,10 @@ compressed space: ``q_nope`` is absorbed through ``w_uk`` and the values stay
 compressed until after the weighted sum, as the reference's einsums do it
 (the reshapes ``(r, h, dn)`` and ``(r, h, dv)``, float32 products of
 compute-dtype operands cast back to the activations' dtype).  Plain tensor
-code through ``layers.bdot``.  ``mla_decode`` writes the new entry into the
-cache in place and returns it (the cache passed in is consumed, as the
-reference's donated buffer).
+code through ``layers.bdot``.  ``MLAPortConfig.yarn`` applies DeepSeek-V2's
+YaRN to the rope dimensions and its mscale to the softmax scale.
+``mla_decode`` writes the new entry into the cache in place and returns it
+(the cache passed in is consumed, as the reference's donated buffer).
 """
 
 from __future__ import annotations
@@ -18,7 +19,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import as_dtype, bdot, dot, rmsnorm, rope_apply, uniform_init
+from repro_torch.models.layers import (
+    as_dtype,
+    bdot,
+    dot,
+    rmsnorm,
+    rope_apply,
+    uniform_init,
+    yarn_mscale,
+)
 
 __all__ = ["mla_init", "mla_train", "mla_prefill", "mla_decode", "init_mla_cache"]
 
@@ -39,6 +48,21 @@ def mla_init(gen, cfg, dtype, lead=()):
     }
 
 
+def _yarn(cfg):
+    """The config's YaRN scaling (``MLAPortConfig.yarn``), or None."""
+    return getattr(cfg.mla, "yarn", None)
+
+
+def softmax_scale(cfg) -> float:
+    """``(dn + dr)^-1/2``, times ``yarn_mscale(s, mscale_all_dim)^2`` under YaRN."""
+    m = cfg.mla
+    scale = 1.0 / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+    yarn = _yarn(cfg)
+    if yarn is not None and yarn.mscale_all_dim:
+        scale *= yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
+    return scale
+
+
 def _project(x, p, cfg, positions):
     """Per-head ``q_nope``, ``q_rope`` and the compressed ``c_kv``, ``k_rope``."""
     b, s, _ = x.shape
@@ -47,10 +71,12 @@ def _project(x, p, cfg, positions):
     cd = cfg.compute_dtype
     q = dot(x, p["wq"], cd).reshape(b, s, h, -1).to(x.dtype)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = rope_apply(q_rope, positions, cfg.rope_theta)
+    yarn = _yarn(cfg)
+    q_rope = rope_apply(q_rope, positions, cfg.rope_theta, yarn)
     ckv_full = dot(x, p["w_dkv"], cd).to(x.dtype)
     c_kv = rmsnorm(ckv_full[..., :r], p["kv_norm"])
-    k_rope = rope_apply(ckv_full[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    k_rope = rope_apply(ckv_full[..., r:][:, :, None, :], positions, cfg.rope_theta,
+                        yarn)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -82,8 +108,7 @@ def _attend_compressed(q_nope, q_rope, c_kv, k_rope, p, cfg, valid, out_dtype):
     r, dv = m.kv_lora_rank, m.v_head_dim
     cd = as_dtype(cfg.compute_dtype)
     q_abs = _per_head(q_nope, p["w_uk"], r, h, cd, into_r=True).to(out_dtype)
-    scale = 1.0 / ((dn + m.qk_rope_head_dim) ** 0.5)
-    scores = _scores(q_abs, q_rope, c_kv, k_rope, cd, scale)
+    scores = _scores(q_abs, q_rope, c_kv, k_rope, cd, softmax_scale(cfg))
     scores = torch.where(valid, scores, -1e30)
     w = torch.softmax(scores, dim=-1)
     # values also stay compressed until after the weighted sum

@@ -5,7 +5,16 @@ Counterpart of ``repro.models.transformer``.  Parameters are the reference's
 nested dict: ``embed``, ``layers`` (every leaf stacked on a leading
 ``n_layers`` axis), ``final_norm`` and, untied, ``head``; checkpoints, the
 converters and spectral-Adam's eligibility (2-D leaves only) depend on that
-layout.  A layer holds ``attn`` or ``mla``, and ``mlp`` or ``moe``.
+layout.  A layer holds ``attn`` or ``mla``, and ``mlp`` or ``moe``.  An MoE
+config with ``MoEPortConfig.first_dense`` k > 0 (not in the reference) adds
+``dense_layers``, the first k layers stacked on their own axis with an
+``mlp`` of ``d_ff``; ``layers`` then holds the other ``n_layers - k``.
+Training runs the two stacks in turn, and serving takes them as one stack
+of ``n_layers`` (the cache's leading axis).
+
+Spans (``obs.blocks.traced_block``, while tracing is on): ``mla``, ``moe``
+and, for an MoE decoder's leading dense layers, ``dense_mlp``, over each
+block's forward, remat recompute and backward.
 
 The layer loop unbinds each stacked leaf once per forward
 (``torch.unbind``): its backward is one ``stack`` of the layers' gradients,
@@ -51,6 +60,7 @@ from repro_torch.models.layers import (
     norm_init,
     uniform_init,
 )
+from repro_torch.obs.blocks import traced_block
 
 __all__ = [
     "decode_cache_spec",
@@ -131,7 +141,12 @@ def remat_wrap(body, cfg):
     return lambda carry, xs: checkpoint(body, carry, xs, use_reentrant=False)
 
 
-def _layer_init(gen, cfg, dtype, n):
+def _first_dense(cfg) -> int:
+    """Leading dense layers of an MoE decoder (``MoEPortConfig.first_dense``)."""
+    return getattr(cfg.moe, "first_dense", 0) if _use_moe(cfg) else 0
+
+
+def _layer_init(gen, cfg, dtype, n, *, dense=False):
     lead = (n,)
     p = {"ln1": norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device, lead),
          "ln2": norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device, lead)}
@@ -139,11 +154,24 @@ def _layer_init(gen, cfg, dtype, n):
         p["mla"] = mla_mod.mla_init(gen, cfg, dtype, lead)
     else:
         p["attn"] = attn.attn_init(gen, cfg, dtype, lead)
-    if _use_moe(cfg):
+    if _use_moe(cfg) and not dense:
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
     else:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, lead)
     return p
+
+
+def _stacks(params) -> list:
+    """The stacked layer groups in depth order: the leading dense layers
+    (``dense_layers``, when the config has them), then ``layers``."""
+    return [params[k] for k in ("dense_layers", "layers") if k in params]
+
+
+def _all_layers(params, cfg) -> list:
+    """One dict per layer, in depth order (one ``unbind`` a stacked leaf)."""
+    k = _first_dense(cfg)
+    out = _unbind_tree(params["dense_layers"], k) if k else []
+    return out + _unbind_tree(params["layers"], cfg.n_layers - k)
 
 
 def decoder_init(gen: torch.Generator | None, cfg, *, device="cuda") -> dict:
@@ -153,11 +181,12 @@ def decoder_init(gen: torch.Generator | None, cfg, *, device="cuda") -> dict:
     reference's bits: carry those over with ``convert.params_from_reference``."""
     gen, _ = init_generator(gen, device)
     dtype = as_dtype(cfg.param_dtype)
-    params = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
-        "layers": _layer_init(gen, cfg, dtype, cfg.n_layers),
-        "final_norm": norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device),
-    }
+    k = _first_dense(cfg)
+    params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
+    if k:
+        params["dense_layers"] = _layer_init(gen, cfg, dtype, k, dense=True)
+    params["layers"] = _layer_init(gen, cfg, dtype, cfg.n_layers - k)
+    params["final_norm"] = norm_init(cfg.d_model, cfg.norm_type, dtype, gen.device)
     if not cfg.tie_embeddings:
         params["head"] = uniform_init(gen, (cfg.d_model, cfg.padded_vocab),
                                       cfg.d_model ** -0.5, dtype)
@@ -166,19 +195,27 @@ def decoder_init(gen: torch.Generator | None, cfg, *, device="cuda") -> dict:
 
 def _mixer_train(x, lp, cfg, positions):
     if _use_mla(cfg):
-        return mla_mod.mla_train(x, lp["mla"], cfg, positions)
+        return traced_block("mla", mla_mod.mla_train, x, lp["mla"], cfg, positions)
     return attn.attn_train(x, lp["attn"], cfg, positions)
 
 
 def _ffn(x, lp, cfg):
+    """The layer's MoE or MLP (spans ``moe``, or ``dense_mlp`` for an MoE
+    decoder's leading dense layers): ``(out, balance loss)``, the loss 0.0
+    but for an MoE layer (``moe_apply``)."""
+    if "moe" in lp:
+        return traced_block("moe", moe_mod.moe_apply, x, lp["moe"], cfg)
     if _use_moe(cfg):
-        return moe_mod.moe_apply(x, lp["moe"], cfg)
-    return mlp_apply(x, lp["mlp"], cfg.mlp_type, cfg.compute_dtype)
+        return traced_block("dense_mlp", mlp_apply, x, lp["mlp"], cfg.mlp_type,
+                            cfg.compute_dtype), 0.0
+    return mlp_apply(x, lp["mlp"], cfg.mlp_type, cfg.compute_dtype), 0.0
 
 
 def _layer_train(x, lp, cfg, positions):
+    """``(layer output, the layer's balance loss)``."""
     h = x + _mixer_train(norm_apply(x, lp["ln1"], cfg.norm_type), lp, cfg, positions)
-    return h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg)
+    out, aux = _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg)
+    return h + out, aux
 
 
 def _logits(x, params, cfg):
@@ -196,25 +233,36 @@ def _embed_inputs(params, batch, cfg):
     return x
 
 
-def decoder_forward(params, batch, cfg):
+def _forward(params, batch, cfg):
+    """``(logits, balance loss summed over the layers)``."""
     x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
 
     def body(carry, lp):
-        return _layer_train(carry, lp, cfg, positions), None
+        y, aux = _layer_train(carry[0], lp, cfg, positions)
+        return (y, carry[1] + aux), None
 
-    x, _ = scan_or_unroll(remat_wrap(body, cfg), x, params["layers"], cfg)
+    carry = (x, 0.0)
+    for stack in _stacks(params):
+        carry, _ = scan_or_unroll(remat_wrap(body, cfg), carry, stack, cfg)
+    x, aux = carry
     x = norm_apply(x, params["final_norm"], cfg.norm_type)
-    return _logits(x, params, cfg)
+    return _logits(x, params, cfg), aux
+
+
+def decoder_forward(params, batch, cfg):
+    return _forward(params, batch, cfg)[0]
 
 
 def decoder_train_loss(params, batch, cfg):
-    logits = decoder_forward(params, batch, cfg)
+    """Mean token cross entropy, plus the MoE layers' sequence-wise balance
+    losses where the config sets ``MoEPortConfig.seq_aux_alpha``."""
+    logits, aux = _forward(params, batch, cfg)
     labels = batch["labels"]
     if cfg.frontend == "vision" and "patches" in batch:
         logits = logits[:, -labels.shape[1]:, :]  # loss on the token stream only
-    return cross_entropy(logits, labels, cfg.vocab_size)
+    return cross_entropy(logits, labels, cfg.vocab_size) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -267,13 +315,12 @@ def decoder_prefill(params, batch, cfg, *, max_len=None):
         else:
             h, cache = attn.attn_prefill(h_norm, lp["attn"], cfg, positions)
         h = x_in + h
-        return h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg), cache
+        return h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg)[0], cache
 
     if torch.is_grad_enabled():
         body = remat_wrap(body, cfg)
     stacked = None
-    layers = _unbind_tree(params["layers"], cfg.n_layers)
-    for i, lp in enumerate(layers):
+    for i, lp in enumerate(_all_layers(params, cfg)):
         x, cache = body(x, lp)
         stacked = _into_stacked(stacked, i, (cfg.n_layers,), cache, max_len)
         del cache
@@ -286,8 +333,7 @@ def decoder_decode_step(params, cache, token, pos, cfg):
     layers, written in place at ``pos`` (a Python int, or a 0-dim tensor) and
     returned."""
     x = embed_lookup(token, params["embed"])
-    layers = _unbind_tree(params["layers"], cfg.n_layers)
-    for i, lp in enumerate(layers):
+    for i, lp in enumerate(_all_layers(params, cfg)):
         cache_l = tree_map(lambda c, i=i: c[i], cache)  # views: the writes land in ``cache``
         h_norm = norm_apply(x, lp["ln1"], cfg.norm_type)
         if _use_mla(cfg):
@@ -295,6 +341,6 @@ def decoder_decode_step(params, cache, token, pos, cfg):
         else:
             h, _ = attn.attn_decode(h_norm, lp["attn"], cfg, cache_l, pos)
         h = x + h
-        x = h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg)
+        x = h + _ffn(norm_apply(h, lp["ln2"], cfg.norm_type), lp, cfg)[0]
     x = norm_apply(x, params["final_norm"], cfg.norm_type)
     return _logits(x, params, cfg), cache

@@ -47,9 +47,12 @@ def bias_corrections(step: torch.Tensor, betas) -> tuple[torch.Tensor, torch.Ten
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, betas=(0.9, 0.95), eps=1e-8,
-                 weight_decay=0.1, grad_clip=1.0):
+                 weight_decay=0.1, grad_clip=1.0, donate: bool = False):
     """One AdamW step: ``(new_params, new_state, gnorm)``; ``gnorm`` is the
-    pre-clip global norm, a 0-dim tensor on the gradients' device."""
+    pre-clip global norm, a 0-dim tensor on the gradients' device.
+    ``donate``: ``params`` and the moments of ``state`` are updated in place
+    and returned (the reference's jitted step donates them) by the same
+    operations in the same order, so the same values."""
     b1, b2 = betas
     step = state.step + 1
     bc1, bc2 = bias_corrections(step, betas)
@@ -61,13 +64,20 @@ def adamw_update(grads, state: AdamWState, params, *, lr, betas=(0.9, 0.95), eps
     new_p, new_m, new_v = [], [], []
     for g, m, v, p in zip(g_l, m_l, v_l, p_l):
         g = g.float() if scale is None else g.float() * scale
-        m2 = b1 * m + (1 - b1) * g
-        v2 = b2 * v + (1 - b2) * g * g
-        mhat = m2 / bc1
-        vhat = v2 / bc2
         pf = p.float()
-        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * pf
-        new_p.append((pf - lr * delta).to(p.dtype))
+        if donate:
+            m2 = m.mul_(b1).add_((1 - b1) * g)
+            v2 = v.mul_(b2).add_(((1 - b2) * g).mul_(g))
+            delta = (m2 / bc1).div_((v2 / bc2).sqrt_().add_(eps)).add_(weight_decay * pf)
+            delta.mul_(lr)
+            new_p.append(p.sub_(delta) if pf is p else p.copy_(pf.sub_(delta)))
+        else:
+            m2 = b1 * m + (1 - b1) * g
+            v2 = b2 * v + (1 - b2) * g * g
+            mhat = m2 / bc1
+            vhat = v2 / bc2
+            delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * pf
+            new_p.append((pf - lr * delta).to(p.dtype))
         new_m.append(m2)
         new_v.append(v2)
     return (tree_unflatten(grads, new_p),

@@ -114,10 +114,40 @@ def _refresh(specs, axis_name):
     return out
 
 
+def _moments(m, v, g, b1, b2, inplace):
+    """``(b1 m + (1 - b1) g, b2 v + (1 - b2) g g)``; with ``inplace`` written
+    into ``m`` and ``v`` by the same operations in the same order (the same
+    bits)."""
+    if not inplace:
+        return b1 * m + (1 - b1) * g, b2 * v + (1 - b2) * g * g
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_(((1 - b2) * g).mul_(g))
+    return m, v
+
+
+def _adam_direction(m, v, bc1, bc2, eps, inplace):
+    """``(m / bc1) / (sqrt(v / bc2) + eps)``, with one temporary fewer in place."""
+    if not inplace:
+        return (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    return (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+
+
+def _decayed(p, pf, delta, lr, weight_decay, inplace):
+    """``pf - lr (delta + weight_decay pf)`` in ``p``'s dtype; with
+    ``inplace`` written into ``p`` (``delta`` is consumed)."""
+    if not inplace:
+        return (pf - lr * (delta + weight_decay * pf)).to(p.dtype)
+    delta.add_(weight_decay * pf).mul_(lr)
+    return p.sub_(delta) if pf is p else p.copy_(pf.sub_(delta))
+
+
 def spectral_adam_update(grads, state: SpectralAdamState, params, *, lr, betas=(0.9, 0.95),
                          eps=1e-8, weight_decay=0.1, update_basis_every: int = 1,
-                         basis_refresh_every: int = 0, axis_name=None):
-    """One step: ``(new_params, new_state)``."""
+                         basis_refresh_every: int = 0, axis_name=None, donate: bool = False):
+    """One step: ``(new_params, new_state)``.  ``donate``: ``params`` and the
+    moments of ``state`` are updated in place and returned (the reference's
+    jitted step donates them), the same values with one copy of each live
+    instead of two."""
     b1, b2 = betas
     step = state.step + 1
     host_step = int(step)  # a CPU tensor: no wait for the card
@@ -147,17 +177,15 @@ def spectral_adam_update(grads, state: SpectralAdamState, params, *, lr, betas=(
             if s.spectral is not None:
                 spec = new_specs[i]
                 gp = project(spec, gf)                          # (r, n)
-                m2 = b1 * s.m + (1 - b1) * gp
-                v2 = b2 * s.v + (1 - b2) * gp * gp
-                upd_p = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+                m2, v2 = _moments(s.m, s.v, gp, b1, b2, donate)
+                upd_p = _adam_direction(m2, v2, bc1, bc2, eps, donate)
                 delta = unproject(spec, upd_p)                  # (m, n)
                 new_s.append(_LeafState(spectral=spec, m=m2, v=v2))
             else:
-                m2 = b1 * s.m + (1 - b1) * gf
-                v2 = b2 * s.v + (1 - b2) * gf * gf
-                delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+                m2, v2 = _moments(s.m, s.v, gf, b1, b2, donate)
+                delta = _adam_direction(m2, v2, bc1, bc2, eps, donate)
                 new_s.append(_LeafState(spectral=None, m=m2, v=v2))
-            new_p.append((pf - lr * (delta + weight_decay * pf)).to(p.dtype))
+            new_p.append(_decayed(p, pf, delta, lr, weight_decay, donate))
 
     return (tree_unflatten(grads, new_p),
             SpectralAdamState(step=step, leaves=tree_unflatten(grads, [(l,) for l in new_s])))

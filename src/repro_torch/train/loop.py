@@ -139,12 +139,15 @@ def mesh_loss_and_grads(api: ModelApi, params, batch, mesh):
 
 
 def train_step(api: ModelApi, opt: OptimizerConfig, params, opt_state, batch, step: int, *,
-               spectral: bool, mesh=None):
+               spectral: bool, mesh=None, donate: bool = False):
     """One step of ``train``: ``(params, opt_state, loss, gnorm)``, the loss and
     the pre-clip gradient norm as 0-dim tensors on the card (nothing is read
     back).  The spectral path does not clip, as in the reference.  With
     ``mesh`` the batch is split over its ``data`` axis
-    (``mesh_loss_and_grads``).  Spans (``obs``): ``train_step`` around it all,
+    (``mesh_loss_and_grads``).  ``donate``: ``params`` and ``opt_state``'s
+    moments are updated in place and returned, as the reference's jitted step
+    donates them (the same values; the update then holds one copy of each
+    instead of two).  Spans (``obs``): ``train_step`` around it all,
     ``fwd_bwd`` and ``optimizer`` around its two parts."""
     with span("train_step"):
         with span("fwd_bwd"):
@@ -162,13 +165,14 @@ def train_step(api: ModelApi, opt: OptimizerConfig, params, opt_state, batch, st
                     new_params, new_state = spectral_adam_update(
                         grads, opt_state, params, lr=lr, betas=opt.betas, eps=opt.eps,
                         weight_decay=opt.weight_decay,
-                        basis_refresh_every=opt.basis_refresh_every)
+                        basis_refresh_every=opt.basis_refresh_every, donate=donate)
                 gnorm = global_norm(grads)
             else:
                 with span("optimizer"):
                     new_params, new_state, gnorm = adamw_update(
                         grads, opt_state, params, lr=lr, betas=opt.betas, eps=opt.eps,
-                        weight_decay=opt.weight_decay, grad_clip=opt.grad_clip)
+                        weight_decay=opt.weight_decay, grad_clip=opt.grad_clip,
+                        donate=donate)
     return new_params, new_state, loss, gnorm
 
 

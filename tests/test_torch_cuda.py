@@ -1470,3 +1470,70 @@ def test_core_graph_never_captures_above_the_givens_limit(cuda_device, core_grap
     outs = [_truncated(prob) for _ in range(3)]
     assert _core_graph_counts() == (0, 0, 0)
     assert all(torch.equal(g, w) for g, w in zip(outs[2], outs[0]))
+
+
+def _v2_options_model(dev):
+    from repro_torch.configs.base import (MLAPortConfig, ModelConfig, MoEPortConfig,
+                                          YarnConfig)
+    from repro_torch.models.registry import build_model
+
+    cfg = ModelConfig(
+        name="v2-options", family="moe", n_layers=3, d_model=256, n_heads=4, n_kv_heads=4,
+        d_ff=384, vocab_size=2048, compute_dtype="bfloat16", remat=True,
+        moe=MoEPortConfig(n_routed=16, n_shared=1, top_k=4, d_ff_expert=128, n_held=4,
+                          held_start=4, norm_topk=False, first_dense=1, seq_aux_alpha=0.001,
+                          group_size=256),
+        mla=MLAPortConfig(kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16,
+                          v_head_dim=32, yarn=YarnConfig(original_max_position=64)))
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, 2048, (2, 513), generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    return api, params, {"tokens": toks[:, :-1].int(), "labels": toks[:, 1:].int()}
+
+
+def test_moe_path_waits_for_nothing_with_obs_off(cuda_device):
+    """DeepSeek-V2's options (expert share, leading dense layer, YaRN, the
+    balance loss) on the card: a forward and backward with ``obs`` off makes
+    the host wait nowhere; with ``obs`` on the counters add no wait either
+    until ``read_counters``, which reads once."""
+    from repro_torch import obs
+    from repro_torch.models import moe
+    from repro_torch.train import loop
+
+    api, params, batch = _v2_options_model(cuda_device)
+    loop.loss_and_grads(api, params, batch)                  # warm
+    assert _syncs(lambda: loop.loss_and_grads(api, params, batch)) == []
+    obs.enable()
+    try:
+        assert _syncs(lambda: loop.loss_and_grads(api, params, batch)) == []
+        counts = moe.read_counters()
+    finally:
+        obs.disable()
+    assert 0 < counts["routed_held"] <= 2 * 512 * 4 * 2
+
+
+def test_donated_step_is_the_same_on_the_card(cuda_device):
+    """``train_step(..., donate=True)`` gives the bits of the undonated step
+    on the card, under spectral-Adam and AdamW."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.spectral_adam import spectral_adam_init
+    from repro_torch.train import loop
+
+    api, params, batch = _v2_options_model(cuda_device)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=100, spectral_rank=8,
+                          basis_refresh_every=2)
+    for spectral in (True, False):
+        runs = []
+        for donate in (False, True):
+            p = tree_map(lambda x: x.clone(), params)
+            st = (spectral_adam_init(torch.Generator(device=cuda_device).manual_seed(2), p,
+                                     rank=8, device=cuda_device)
+                  if spectral else adamw_init(p))
+            for step in range(4):
+                p, st, _, _ = loop.train_step(api, opt, p, st, batch, step, spectral=spectral,
+                                              donate=donate)
+            runs.append([x.clone() for x in tree_leaves(p)])
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), spectral

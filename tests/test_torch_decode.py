@@ -269,7 +269,7 @@ def _moe_case(moe=None):
 def test_moe_apply_and_aux_loss(shape):
     rcfg, pcfg, params, pp = _moe_case()
     x = _x(shape + (rcfg.d_model,), 9)
-    assert _rel(PMOE.moe_apply(_t(x), pp, pcfg), RMOE.moe_apply(jnp.asarray(x), params, rcfg)) < F32
+    assert _rel(PMOE.moe_apply(_t(x), pp, pcfg)[0], RMOE.moe_apply(jnp.asarray(x), params, rcfg)) < F32
     assert _rel(PMOE.moe_aux_loss(_t(x), pp, pcfg),
                 RMOE.moe_aux_loss(jnp.asarray(x), params, rcfg)) < F32
 
@@ -287,7 +287,7 @@ def test_moe_decode_batch_drops_like_the_reference():
     assert int((pos >= 1).sum()) > 0                       # some choices collide and drop
     _, r_idx = jax.lax.top_k(jax.nn.softmax(jnp.asarray(x).reshape(1, 8, -1) @ params["router"]), 6)
     np.testing.assert_array_equal(_np(idx), np.asarray(r_idx))
-    assert _rel(PMOE.moe_apply(_t(x), pp, pcfg), RMOE.moe_apply(jnp.asarray(x), params, rcfg)) < F32
+    assert _rel(PMOE.moe_apply(_t(x), pp, pcfg)[0], RMOE.moe_apply(jnp.asarray(x), params, rcfg)) < F32
 
 
 def test_moe_ties_go_to_the_lower_index():
@@ -297,7 +297,7 @@ def test_moe_ties_go_to_the_lower_index():
     x = np.zeros((2, 4, rcfg.d_model), np.float32)
     _, _, idx = PMOE._route(_t(x), pp["router"], pcfg.moe)
     assert (_np(idx) == np.arange(pcfg.moe.top_k)).all()
-    assert _rel(PMOE.moe_apply(_t(x), pp, pcfg) + 1, RMOE.moe_apply(jnp.asarray(x), params, rcfg) + 1) < F32
+    assert _rel(PMOE.moe_apply(_t(x), pp, pcfg)[0] + 1, RMOE.moe_apply(jnp.asarray(x), params, rcfg) + 1) < F32
     assert _rel(PMOE.moe_aux_loss(_t(x), pp, pcfg), RMOE.moe_aux_loss(jnp.asarray(x), params, rcfg)) < F32
 
 

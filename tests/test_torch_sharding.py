@@ -283,8 +283,8 @@ def test_moe_shard_constraints_leave_the_values(constraints):
     x = np.random.default_rng(2).normal(size=(2, 16, p_cfg.d_model)).astype(np.float32)
     want = np.asarray(RMOE.moe_apply(jnp.asarray(x), jax.tree.map(jnp.asarray, lp), r_cfg))
     got = PMOE.moe_apply(torch.as_tensor(x), convert.params_from_reference(lp, device="cpu"),
-                         p_cfg)
+                         p_cfg)[0]
     plain = PMOE.moe_apply(torch.as_tensor(x), convert.params_from_reference(lp, device="cpu"),
-                           p_cfg.replace(moe_shard_constraints=False))
+                           p_cfg.replace(moe_shard_constraints=False))[0]
     assert torch.equal(got, plain)
     assert np.abs(got.numpy() - want).max() < 1e-5 * np.abs(want).max()
