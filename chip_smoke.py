@@ -154,7 +154,17 @@ result) when it fails:
    16 meta mesh (three terms, useful FLOPs), and the compute term of (t1)'s
    own configuration on one card held under (t1)'s measured step; (m4)
    ``perf_iter --svd``'s cells on the card (FLOPs, bytes, useful ratio,
-   seconds); A-F's launches over the phase (0: a check).
+   seconds); A-F's launches over the phase (0: a check); the split
+   kernel's launches over (m1)'s ``train(mesh=)`` (its bf16 backward).
+(s) the split kernel S (``kernels.split_bf16x3``: ``split_bf16x3`` and
+   ``repeat_bf16x3``, no TPU kernel; run after (m)) at the shapes the bf16
+   backward gives it at (t1)'s widths (``SPLIT_SHAPES``): granite's score
+   cotangent (1, 48 x 4096, 4096) and its MLP input matrix's cotangent
+   (4096, 24576), each split in 512-term chunks along either axis, and the
+   bf16 operands laid out beside them; each against its plain version bit
+   for bit (NaN where the plain version has NaN; special values planted),
+   its ms, the plain version's and its bytes bound (10 B an element split,
+   8 B repeated, at 3.35 TB/s).  The ``kernels`` line's S row.
 (x) the port's four examples (``examples/*_torch.py``), each through its
    ``main`` at the reference's defaults, last: the quickstart (E), the
    streaming SVD's five parts (B), compressed DP in a gloo world of 8 ranks
@@ -298,6 +308,10 @@ DRIVE1_TRUTH_LIMIT = 1e-7
 #      kernels.ops.secular_solve).
 _NONE = {"sparse_project": 0, "fused_update": 0, "fused_update_truncated": 0,
          "cauchy_matmul": 0, "secular_solve": 0, "nearfield": 0}
+# the ports of the TPU kernels; split_bf16x3 and repeat_bf16x3 (no TPU kernel)
+# run in every bf16 backward on the card and are held to no route here
+A_TO_F = tuple(_NONE)
+SPLIT_KERNELS = ("split_bf16x3", "repeat_bf16x3")
 _FMM_CALL = {**_NONE, "nearfield": 8}
 DRIVE_LAUNCHES = {
     "1 full exact": {**_NONE, "sparse_project": 2, "fused_update": 8},
@@ -803,7 +817,7 @@ def merge_worker(rank: int, world: int, backend: str, init: str, paths: dict) ->
         merged = distributed_merge(local, group, policy=pol)
         torch.cuda.synchronize()
         merge_ms = (time.perf_counter() - t) * 1e3
-        launches = dict(_build.LAUNCHES)
+        launches = {k: _build.LAUNCHES[k] for k in A_TO_F}
         t = time.perf_counter()
         all_gather_tsvd(local, group)
         torch.cuda.synchronize()
@@ -1996,7 +2010,7 @@ def _serve_family(label, dev, card, sz) -> dict:
         toks2 = _family_greedy(api, params, batch, new, prefill_kw)
     finally:
         torch.use_deterministic_algorithms(False)
-    row["kernel_launches"] = dict(_build.LAUNCHES)
+    row["kernel_launches"] = {k: _build.LAUNCHES[k] for k in A_TO_F}
     require(torch.equal(toks1, toks2), f"({label}) two greedy runs differ")
     require(tuple(toks1.shape) == (b, new) and int(toks1.max()) < cfg.vocab_size
             and int(toks1.min()) >= 0, f"({label}) tokens out of the vocabulary")
@@ -2390,10 +2404,13 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
                     checkpoint_dir=str(work / "m1"), seed=0)
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
+    for k in SPLIT_KERNELS:              # the split kernel's launches over this bf16 training
+        _build.LAUNCHES[k] = 0
     t0 = time.perf_counter()
     with _SpanClock() as clock:
         res = loop.train(run, batch_size=sz["batch"], seq_len=sz["seq"], device=dev, mesh=mesh)
     sync()
+    split_launches = {k: _build.LAUNCHES[k] for k in SPLIT_KERNELS}
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base_mem
     split = clock.split()
@@ -2438,7 +2455,7 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
     out["m1_train"] = {"losses": losses, "steps": split, "step_ms": step_ms,
                        "fwd_bwd_ms": fb_ms, "fwd_bwd_share": fb_ms / step_ms, "wall_s": wall,
                        "peak_bytes": peak, "host_waits_a_step": waits, "waits_at": where,
-                       "meshless_same_batch": meshless}
+                       "meshless_same_batch": meshless, "split_launches": split_launches}
     log(f"  (m1) train(mesh={sz['mesh']}) b{sz['batch']} x s{sz['seq']}: losses "
         f"{[round(v, 4) for v in losses]} | {step_ms:.1f} ms a step after the first (fwd+bwd "
         f"{fb_ms:.1f} ms, {100 * fb_ms / step_ms:.1f} %) | peak {peak / 2**30:.2f} GiB | "
@@ -2447,6 +2464,10 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
         log(f"    step {i}: {st['step_ms']:.1f} ms = fwd+bwd of the slices {st['fwd_bwd_ms']:.1f} "
             f"+ AdamW {st['optimizer_ms']:.1f}")
     log(f"    the mesh-less step at b{sz['batch']} x s{sz['seq']}: {meshless}")
+    log(f"    the split kernel's launches over train(mesh=): {split_launches}")
+    require(split_launches["split_bf16x3"] > 0
+            and split_launches["split_bf16x3"] == split_launches["repeat_bf16x3"],
+            f"(m1) the bf16 backward did not split each product once: {split_launches}")
     require(waits == 0, f"(m1) a mesh step that neither logs nor saves waited for the card "
                         f"{waits} times: {where}")
 
@@ -2514,7 +2535,7 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
             f"{rec['useful_flops_ratio']:.3f}, {rec['seconds'] * 1e3:.2f} ms a flush | {card}")
     out["m4"] = m4
 
-    launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+    launched = {k: _build.LAUNCHES[k] - launches0[k] for k in A_TO_F}
     out["launches_a_f"] = launched
     log(f"  (m) launches of A-F over the phase: {launched}")
     require(not any(launched.values()), f"(m) a kernel of A-F launched on the path: {launched}")
@@ -2522,6 +2543,85 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase (m): {out['seconds']:.1f} s | {card}")
     return out
+
+
+def split_phase(dev, card: str) -> dict:
+    """Phase (s): the split kernel S at ``SPLIT_SHAPES`` against its plain
+    version, bit for bit, and timed.  Returns the ``kernels`` line's S row
+    (the first shape) with every shape's figures under ``cases``.  Raises on
+    any failed check."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import split_bf16x3 as SB
+    from repro_torch.models.layers import _chunks
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def time_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
+    def same_bits(got, want):
+        """Per chunk: NaN where ``want`` has NaN, the same bits elsewhere."""
+        for x, y in zip(got, want):
+            nan = y.isnan()
+            if not (torch.equal(x.isnan(), nan) and torch.equal(
+                    x.masked_fill(nan, 0).view(torch.int16), y.masked_fill(nan, 0).view(torch.int16))):
+                return False
+        return True
+
+    cases = []
+    for label, kernel, shape, dim in SPLIT_SHAPES:
+        length = _chunks(shape[dim])[1]
+        # a cotangent's spread of magnitudes (a normal times e^(10 x normal)),
+        # the special values planted at random places
+        x = torch.randn(shape, generator=gen, device=dev) * torch.exp(
+            torch.randn(shape, generator=gen, device=dev) * 10)
+        at = torch.randint(0, x.numel(), (64 * len(SPLIT_SPECIALS),), generator=gen, device=dev)
+        x.view(-1)[at] = torch.tensor(SPLIT_SPECIALS, device=dev).repeat(64)
+        if kernel == "repeat_bf16x3":
+            x = x.bfloat16()
+        fn = getattr(SB, f"{kernel}_cuda")
+        plain = getattr(SB, f"{kernel}_plain")
+        before = _build.LAUNCHES[kernel]
+        got = fn(x, dim, length)
+        torch.cuda.synchronize()
+        require(_build.LAUNCHES[kernel] == before + 1, f"(s) {kernel} did not count its launch")
+        want = plain(x, dim, length)
+        equal = same_bits(got, want)
+        del got, want
+        torch.cuda.empty_cache()
+        nbytes = x.numel() * (10 if kernel == "split_bf16x3" else 8)
+        row = {"case": label, "kernel": kernel, "shape": list(shape), "dim": dim, "length": length,
+               "equal": equal, "ms": time_ms(lambda: fn(x, dim, length)),
+               "plain_ms": time_ms(lambda: plain(x, dim, length), reps=3),
+               "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        cases.append(row)
+        log(f"  (s) {kernel} {label} {tuple(shape)} along {dim} by {length}: "
+            f"{'equal to its plain version' if equal else 'NOT equal to its plain version'} | "
+            f"kernel {row['ms']:.3f} ms ({100 * row['bound_ms'] / row['ms']:.1f} % of its bytes "
+            f"bound {row['bound_ms']:.3f} ms) | plain {row['plain_ms']:.3f} ms | {card}")
+        require(equal, f"(s) {kernel} differs from its plain version at {label} {shape}")
+        del x
+        torch.cuda.empty_cache()
+    head = cases[0]
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase (s): {seconds:.1f} s | {card}")
+    return {"ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shape": f"float32 {tuple(head['shape'])} along {head['dim']} by {head['length']}",
+            "cases": cases, "seconds": seconds}
 
 
 # phase (x): the port's four examples on the card at the reference's defaults,
@@ -2540,6 +2640,20 @@ def shard_phase(dev, card: str, t1_step_ms: float, sizes=None) -> dict:
 # at that width than a smoke test gives it (on the H100, 100 steps at this
 # schedule left the loss at 10.45-10.73 from 10.51 at step 0).
 X_TRAIN = {"steps": 20, "resume_to": 30}
+# phase (s): (name, kernel, shape, dim) at (t1)'s widths (granite-34b: 48
+# heads, MQA, d_model 6144, d_ff 24576, seq 4096): the score cotangent dS of
+# q k^T (dim 2 for dS k, dim 1 for q^T dS), the MLP input matrix's cotangent
+# (dim 2 for its dx, dim 1 for its dW), and the bf16 operands beside them:
+# q for q^T dS, the MLP input matrix for dx.  The row of the ``kernels`` line
+# is the first.
+SPLIT_SHAPES = (("scores dS k", "split_bf16x3", (1, 48 * 4096, 4096), 2),
+                ("scores q^T dS", "split_bf16x3", (1, 48 * 4096, 4096), 1),
+                ("mlp dx", "split_bf16x3", (1, 4096, 24576), 2),
+                ("mlp dW", "split_bf16x3", (1, 4096, 24576), 1),
+                ("q for q^T dS", "repeat_bf16x3", (1, 48 * 4096, 128), 1),
+                ("w_in for dx", "repeat_bf16x3", (1, 6144, 24576), 2))
+SPLIT_SPECIALS = (0.0, -0.0, 1e-40, -1e-45, 7.7e-34, -3.3e38, float("inf"), -float("inf"),
+                  float("nan"))
 X_ROUTES = {"quickstart": ("nearfield",), "streaming": ("fused_update_truncated",),
             "compressed_dp": ("fused_update_truncated",), "train_lm": ()}
 
@@ -2578,7 +2692,7 @@ def examples_phase(dev, card: str) -> dict:
         fig = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launched = dict(_build.LAUNCHES)
+        launched = {k: _build.LAUNCHES[k] for k in A_TO_F}
         if label == "compressed_dp":
             require(not any(launched.values()), f"(x) the parent of compressed_dp launched {launched}")
             launched = fig["launches"]
@@ -2728,7 +2842,15 @@ def main() -> int:
     # memory is still free (the mesh step at (t1)'s widths peaks near (t1))
     log("phase (m): sharding and the launch tier")
     t1_step_ms = train_out["t1"]["adamw"]["mean_after_first"]["step_ms"]
-    log("shard " + json.dumps(shard_phase(dev, card, t1_step_ms)))
+    shard_out = shard_phase(dev, card, t1_step_ms)
+    log("shard " + json.dumps(shard_out))
+
+    # -- phase (s), the split kernel at the bf16 backward's shapes: after (m),
+    # while the card's memory is still free (the plain version's temporaries
+    # at the score cotangent take ~40 GB)
+    log("phase (s): the split kernel")
+    split_out = split_phase(dev, card)
+    log("split " + json.dumps(split_out))
 
     rng = np.random.default_rng(0)
 
@@ -3035,7 +3157,7 @@ def main() -> int:
             s2["misses"] = sum(e.cache_info().misses for e in ENG._default_engines.values())
             builds = []
             real_build = _build.build_all
-            _build.build_all = lambda: builds.append(1) or real_build()
+            _build.build_all = lambda *a: builds.append(1) or real_build(*a)
             try:
                 resumed.flush_round()          # the first flush after the restore
                 torch.cuda.synchronize()
@@ -4179,7 +4301,7 @@ def main() -> int:
             f4["misses"] = sum(e.cache_info().misses for e in ENG._default_engines.values())
             builds = []
             real_build = _build.build_all
-            _build.build_all = lambda: builds.append(1) or real_build()
+            _build.build_all = lambda *a: builds.append(1) or real_build(*a)
             try:
                 f4["first_events"] = resumed.pump()      # the first flush after the restore
                 torch.cuda.synchronize()
@@ -4514,6 +4636,14 @@ def main() -> int:
                         **({k_: row[k_] for k_ in ("einsum_near_inv_ms", "device_ms", "host_ms",
                                                    "pipe_bound_ms", "steps") if k_ in row}),
                         "shape": f"float64 {row['shape']}"})
+    # kernel S at the score cotangent (phase (s)); launches over (m1)'s bf16
+    # training, which counts both of its entry points
+    m1_split = shard_out["m1_train"]["split_launches"]
+    kernels.append({"name": "split_bf16x3", "route": "cuda",
+                    "source": "src/repro_torch/csrc/split_bf16x3.cu", "replaces": None,
+                    "launches": sum(m1_split.values()), "launches_by_entry": m1_split,
+                    "launches_over": f"phase (m1)'s train(mesh=), {SHARD['steps']} bf16 steps",
+                    "max_abs_err": 0.0, **split_out})
     log(f"run: {time.perf_counter() - t_run:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,7 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, on first use, under ``build/repro_torch/<hash>/`` at the
 root of the checkout; the hash covers every file in ``csrc/`` and the flags,
-so an edit rebuilds.  All sources are compiled in parallel, one ``nvcc`` each.
+so an edit rebuilds.  ``library(name)`` compiles its own source alone (a
+training step, which launches only ``split_bf16x3``, waits for no other
+kernel's build); ``build_all()`` compiles every source in parallel, one
+``nvcc`` each.
 The libraries are loaded with ``ctypes``: pointers and the stream travel as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()``.
 
@@ -30,12 +33,13 @@ __all__ = ["LAUNCHES", "build_all", "check", "library", "ptrs", "reset_launches"
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("cauchy_matmul", "fused_update_f32", "fused_update_f64", "fused_update_bf16",
-           "fused_update_f16", "sparse_proj", "secular_newton", "nearfield")
+           "fused_update_f16", "sparse_proj", "secular_newton", "nearfield", "split_bf16x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 LAUNCHES = {"cauchy_matmul": 0, "fused_update": 0, "fused_update_truncated": 0,
-            "sparse_project": 0, "secular_solve": 0, "nearfield": 0}
+            "sparse_project": 0, "secular_solve": 0, "nearfield": 0, "split_bf16x3": 0,
+            "repeat_bf16x3": 0}
 
 _P, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
@@ -64,6 +68,7 @@ _SIGNATURES = {
     "nearfield": {
         f"nearfield_{t}": ([_P] * 6 + [_I] * 5 + [_P], _I) for t in ("f32", "f64")
     },
+    "split_bf16x3": {n: ([_P] * 2 + [_LL] * 4 + [_P], _I) for n in ("split_bf16x3", "repeat_bf16x3")},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -96,10 +101,11 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> Path:
-    """Compile every missing library in parallel; returns the build directory."""
+def build_all(names=SOURCES) -> Path:
+    """Compile every missing library of ``names`` (all by default) in
+    parallel; returns the build directory."""
     out_dir = _build_dir()
-    missing = [s for s in SOURCES if not (out_dir / f"lib{s}.so").exists()]
+    missing = [s for s in names if not (out_dir / f"lib{s}.so").exists()]
     if not missing:
         return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -130,7 +136,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
+            lib = ctypes.CDLL(str(build_all((name,)) / f"lib{name}.so"))
             for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes

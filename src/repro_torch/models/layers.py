@@ -12,6 +12,18 @@ compute-dtype operand, accumulated in float32 and rounded to the compute
 dtype.  A float32 compute dtype is a plain float32 matmul; TF32 stays off
 (``torch.backends.cuda.matmul.allow_tf32`` is False by default and nothing
 here sets it).
+
+With a bf16 compute dtype on a card the backward takes the same products on
+the bf16 tensor cores: the cotangent splits exactly into three bf16 planes
+(``kernels.split_bf16x3``), and a bf16 x bf16 product is exact in float32, so
+the planes' products summed in float32 are the float32 product in another
+order of sums.  Each product's contraction runs in chunks of at most
+``SPLIT_CHUNK`` terms, a chunk over its three planes stacked (the other
+operand's chunk three times, ``kernels.repeat_bf16x3``), and the chunks are
+summed in float32 outside the tensor cores (see ``SPLIT_CHUNK``).  float16
+(whose pieces would leave its narrow exponent range), float32 and the CPU
+keep the float32 product.  With ``obs`` enabled the backward counts its
+products by path (``read_counters``).
 """
 
 from __future__ import annotations
@@ -20,6 +32,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import obs as _obs
+from repro_torch.kernels.split_bf16x3 import repeat_bf16x3, split_bf16x3
 
 __all__ = [
     "dot",
@@ -40,7 +55,10 @@ __all__ = [
     "cross_entropy",
     "uniform_init",
     "as_dtype",
+    "read_counters",
 ]
+
+_COUNTS = {"split": 0, "float32": 0}   # backward products by path, while obs is enabled
 
 
 def as_dtype(name) -> torch.dtype:
@@ -70,6 +88,88 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+# The tensor cores' float32 accumulator rounds toward zero, so a bf16 product's
+# error grows with its contraction's length, past a float32 product's (which
+# grows with its square root) from a few hundred terms on (an H100: 4.4e-6
+# against 1.1e-6 at 4096 terms, 2.8e-5 against 2.8e-6 at 24576).  The split
+# products cut the contraction into chunks of at most SPLIT_CHUNK terms (the
+# three planes stacked, 3 x SPLIT_CHUNK a product) and sum the chunks in
+# float32 outside the tensor cores: at 512 they read 0.1-0.6x the float32
+# product's error at the benchmark's shapes, 1024 up to 1.24x, and each halving
+# adds the chunk sums' traffic (PERF.md's chunk sweep).
+SPLIT_CHUNK = 512
+# A chunk's output of at least this many bytes is added in place (one product
+# a chunk); smaller ones run as one batched product whose chunk outputs, at
+# most _PARTIALS_BYTES at a time, are summed after it: a product a chunk pays
+# a launch each for small outputs (chaining every chunk made an H100's fwd+bwd
+# 1.7 % slower at granite-34b's widths, 0.6 % at DeepSeek-V2-Lite's), and
+# batching every chunk pays the large outputs' partials (2-3 % slower).
+_CHAIN_BYTES = 1 << 24
+_PARTIALS_BYTES = 1 << 31
+
+
+def _mm_acc(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    """``out += a @ b`` in place: compute-dtype operands (3-D), float32
+    ``out`` (on the CPU, as in ``_mm_f32``, the operands upcast)."""
+    if a.is_cuda:
+        torch.baddbmm(out, a, b, out_dtype=torch.float32, out=out)
+    else:
+        out += torch.matmul(a.float(), b.float())
+
+
+def _chunks(k: int) -> tuple[int, int]:
+    """``(c, length)``: ``k`` contraction terms in ``c`` chunks of ``length``
+    (a multiple of 8, at most ``SPLIT_CHUNK`` rounded up to one)."""
+    length = -(-k // (8 * max(1, -(-k // SPLIT_CHUNK)))) * 8 or 8
+    return max(1, -(-k // length)), length
+
+
+def _chunked_product(x: torch.Tensor, y: torch.Tensor, c: int, b: int) -> torch.Tensor:
+    """``sum_j x_j @ y_j`` over ``c`` chunks: ``x`` (c B, m, k), ``y``
+    (c B, k, n) -> float32 (B, m, n), the chunks summed in float32."""
+    m, n = x.shape[1], y.shape[2]
+    per = 4 * b * m * n
+    group = 1 if per >= _CHAIN_BYTES else max(1, _PARTIALS_BYTES // per)
+    out = None
+    for j in range(0, c, group):
+        xs, ys = x[j * b:(j + group) * b], y[j * b:(j + group) * b]
+        if out is not None and group == 1:
+            _mm_acc(out, xs, ys)
+            continue
+        part = _mm_f32(xs, ys).view(-1, b, m, n)
+        part = part.sum(0) if part.shape[0] > 1 else part[0]
+        out = part if out is None else out.add_(part)
+    return out
+
+
+def _split_products(g, a, b, need_a: bool, need_b: bool):
+    """``g @ b^T`` and ``a^T @ g`` of a float32 ``g`` (..., M, N) and bf16
+    ``a`` (..., M, K), ``b`` (..., K, N), on the bf16 tensor cores through
+    ``g``'s three planes, one split for each product (its chunks run along
+    that product's contraction); float32 results (None where not needed)."""
+    two_d = g.dim() == 2
+    if two_d:
+        g, a, b = g[None], a[None], b[None]
+    bsz, m, n = g.shape
+    g = g.contiguous()
+    ga = gb = None
+    if need_a:                                      # contraction over N
+        c, length = _chunks(n)
+        planes = split_bf16x3(g, 2, length).view(c * bsz, m, 3 * length)
+        other = repeat_bf16x3(b.contiguous(), 2, length).view(c * bsz, -1, 3 * length)
+        ga = _chunked_product(planes, other.mT, c, bsz)
+        del planes, other
+    if need_b:                                      # contraction over M
+        c, length = _chunks(m)
+        planes = split_bf16x3(g, 1, length).view(c * bsz, 3 * length, n)
+        other = repeat_bf16x3(a.contiguous(), 1, length).view(c * bsz, 3 * length, -1)
+        gb = _chunked_product(other.mT, planes, c, bsz)
+    if two_d:
+        ga = None if ga is None else ga[0]
+        gb = None if gb is None else gb[0]
+    return ga, gb
+
+
 class _DotF32(torch.autograd.Function):
     """Compute-dtype product with float32 output and the reference's backward
     (float32 cotangent x compute-dtype operand, rounded to the compute dtype,
@@ -86,13 +186,33 @@ class _DotF32(torch.autograd.Function):
     def backward(ctx, g):
         ac, bc = ctx.saved_tensors
         da, db = ctx.dtypes
+        need_a, need_b = ctx.needs_input_grad[:2]
         g = g.float()
-        ga = gb = None
-        if ctx.needs_input_grad[0]:
-            ga = torch.matmul(g, bc.float().mT).to(ac.dtype).to(da)
-        if ctx.needs_input_grad[1]:
-            gb = torch.matmul(ac.float().mT, g).to(bc.dtype).to(db)
-        return ga, gb, None
+        split = ac.dtype == torch.bfloat16 and g.is_cuda
+        if _obs.enabled():
+            _COUNTS["split" if split else "float32"] += 1
+        if split:
+            ga, gb = _split_products(g, ac, bc, need_a, need_b)
+        else:
+            ga = torch.matmul(g, bc.float().mT) if need_a else None
+            gb = torch.matmul(ac.float().mT, g) if need_b else None
+        return (ga if ga is None else ga.to(ac.dtype).to(da),
+                gb if gb is None else gb.to(bc.dtype).to(db), None)
+
+
+def read_counters() -> dict:
+    """``{"split", "float32"}``: the backward products of ``dot``/``bdot``
+    that took the three bf16 planes and those that took the float32 product,
+    counted while ``obs`` was enabled since the last read; reset on read and
+    added to the obs registry's counters ``dot_bwd_split`` and
+    ``dot_bwd_float32``."""
+    out = dict(_COUNTS)
+    for k in _COUNTS:
+        _COUNTS[k] = 0
+    reg = _obs.registry()
+    reg.counter("dot_bwd_split").inc(out["split"])
+    reg.counter("dot_bwd_float32").inc(out["float32"])
+    return out
 
 
 def _dot2(a: torch.Tensor, b: torch.Tensor, cd: torch.dtype) -> torch.Tensor:

@@ -1077,6 +1077,131 @@ def test_bf16_loss_and_grads_on_the_card_match_the_cpu(cuda_device):
     assert all(x.is_cuda for x in _leaves_of(card_grads))
 
 
+SPLIT_VALUES = [0.0, -0.0, 1e-40, -1e-45, 7.7e-34, -3.3e38, float("inf"), -float("inf"),
+                float("nan")]
+
+
+@pytest.mark.parametrize("shape,dim,length", [
+    ((4105,), 0, 4105), ((4105,), 0, 512), ((37, 5, 29), 1, 2), ((37, 5, 29), 2, 8),
+    ((3, 64, 96), 1, 16), ((3, 64, 96), 2, 40), ((1, 4096, 128), 1, 512),
+    ((1, 4096, 128), 2, 128), ((2, 9, 8), 0, 1), ((2, 9, 8), 2, 3)])
+def test_split_kernel_matches_plain(cuda_device, shape, dim, length):
+    """``split_bf16x3``'s kernel against its plain version: the same bits
+    wherever the plain version's plane is not NaN (a NaN's payload is the
+    conversion's), NaN where it is; the 1-D cases hold 1e-30 .. 3e38 of
+    both signs and the special values."""
+    from repro_torch.kernels.split_bf16x3 import split_bf16x3_cuda, split_bf16x3_plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    if len(shape) == 1:
+        mags = torch.logspace(-30, 38.47, shape[0] - len(SPLIT_VALUES), device=cuda_device)
+        signs = torch.where(torch.rand(mags.shape, generator=gen, device=cuda_device) < 0.5, -1.0, 1.0)
+        g = torch.cat([mags * signs, torch.tensor(SPLIT_VALUES, device=cuda_device)])
+    else:
+        g = torch.randn(shape, generator=gen, device=cuda_device) * torch.exp(
+            torch.randn(shape, generator=gen, device=cuda_device) * 10)
+    before = _build.LAUNCHES["split_bf16x3"]
+    got = split_bf16x3_cuda(g, dim, length)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["split_bf16x3"] == before + 1
+    want = split_bf16x3_plain(g, dim, length)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int16)[~nan], want.view(torch.int16)[~nan])
+
+
+@pytest.mark.parametrize("shape,dim,length", [((37, 5, 29), 1, 2), ((3, 64, 96), 2, 40),
+                                              ((2, 4096, 512), 1, 512), ((6144, 128), 1, 128),
+                                              ((2, 9, 8), 2, 3)])
+def test_repeat_kernel_matches_plain(cuda_device, shape, dim, length):
+    """``repeat_bf16x3``'s kernel (a bf16 operand's chunks, three times)
+    against its plain version, bit for bit."""
+    from repro_torch.kernels.split_bf16x3 import repeat_bf16x3_cuda, repeat_bf16x3_plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(shape, generator=gen, device=cuda_device).bfloat16()
+    before = _build.LAUNCHES["repeat_bf16x3"]
+    got = repeat_bf16x3_cuda(x, dim, length)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["repeat_bf16x3"] == before + 1
+    assert torch.equal(got.view(torch.int16), repeat_bf16x3_plain(x, dim, length).view(torch.int16))
+
+
+# (g, a, b) of a product a @ b, shapes cut from the cells: granite's MLP input
+# matrix at 4096 tokens (its dW contracts the tokens), granite's MQA score
+# product q k^T at 8 of its 48 heads (dS K contracts 4096 keys, q^T dS 8 x 4096
+# rows), and DeepSeek-V2-Lite's latent score product q_abs c_kv^T at 4 of its
+# 16 heads
+SPLIT_SHAPES = {"granite-mlp": ((4096, 24576), (4096, 6144), (6144, 24576)),
+                "granite-mqa-scores": ((1, 8 * 4096, 4096), (1, 8 * 4096, 128), (1, 128, 4096)),
+                "v2lite-mla-latent": ((1, 4 * 4096, 4096), (1, 4 * 4096, 512), (1, 512, 4096))}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_SHAPES))
+def test_split_products_within_twice_the_float32_error_on_the_card(cuda_device, case,
+                                                                   record_property):
+    """``g b^T`` and ``a^T g`` through the three planes against the float64
+    product: at most twice the error of the float32 product the backward
+    took before (``||C - C64||_F / ||C64||_F``; both recorded).  The tensor
+    cores' float32 accumulator rounds toward zero, so unchunked the planes'
+    products read 4-17x the float32 error at these shapes."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    gs, as_, bs = SPLIT_SHAPES[case]
+    g = torch.randn(gs, generator=gen, device=cuda_device)
+    a = torch.randn(as_, generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn(bs, generator=gen, device=cuda_device).bfloat16()
+    want = (torch.matmul(g.double(), b.double().mT), torch.matmul(a.double().mT, g.double()))
+    f32 = (torch.matmul(g, b.float().mT), torch.matmul(a.float().mT, g))
+    split = L._split_products(g, a, b, True, True)
+    for name, w, x, y in zip(("ga", "gb"), want, f32, split):
+        err_f32 = float((x.double() - w).norm() / w.norm())
+        err_split = float((y.double() - w).norm() / w.norm())
+        record_property(f"{name}_err_f32", err_f32)
+        record_property(f"{name}_err_split", err_split)
+        print(f"{case} {name}: float32 {err_f32:.3e}, split {err_split:.3e}")
+        assert y.dtype == torch.float32 and y.shape == w.shape
+        assert err_split <= 2 * err_f32, (case, name, err_split, err_f32)
+
+
+@pytest.mark.parametrize("cd,path", [("bfloat16", "split"), ("float16", "float32"),
+                                     ("float32", None)])
+def test_smoke_step_backward_products_by_path(cuda_device, cd, path):
+    """granite-34b's smoke config, one forward and backward on the card with
+    ``obs`` enabled: in bf16 every backward product takes the three planes,
+    as many as the CPU's float32 path counts at the same config; float16
+    keeps the float32 product, and float32 compute never reaches the
+    backward of ``_DotF32``."""
+    from repro_torch import configs
+    from repro_torch import obs
+    from repro_torch.data.synthetic import batch_for_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import loop
+
+    api = build_model(configs.get_smoke("granite-34b").replace(compute_dtype=cd))
+    p0 = api.init(torch.Generator().manual_seed(1), device="cpu")
+    batch = batch_for_step(0, 0, batch=2, seq=32, vocab=512, device="cpu")
+    counts = {}
+    obs.enable()
+    try:
+        L.read_counters()
+        for dev in ("cpu", cuda_device):
+            loop.loss_and_grads(api, _to(p0, dev), _to(batch, dev))
+            counts[dev] = L.read_counters()
+    finally:
+        obs.disable()
+    on_cpu, on_card = counts["cpu"], counts[cuda_device]
+    assert on_cpu["split"] == 0
+    if path is None:
+        assert on_cpu == on_card == {"split": 0, "float32": 0}
+    else:
+        assert on_cpu["float32"] > 0
+        other = "float32" if path == "split" else "split"
+        assert on_card == {path: on_cpu["float32"], other: 0}
+
+
 def _leaves_of(tree):
     from repro_torch._tree import tree_leaves
 
